@@ -1,4 +1,4 @@
-"""MetricSfM-TPU: a TPU-native structure-from-motion framework.
+"""MetricSfM-TPU: a structure-from-motion framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
 MetricSfM suite (C++/Ceres/CUDA): sparse incremental SfM for web/aerial/street
@@ -18,11 +18,12 @@ Package layout:
 
 import jax as _jax
 
-# Geometry and BA math requires true f32 matmuls; the TPU default (bf16
-# passes) loses ~3 decimal digits, which breaks rotation algebra and normal
-# equations.  Kernels that *want* bf16 (descriptor matching) opt in by
-# casting their operands to bfloat16 explicitly — this setting does not
-# upcast bf16 inputs.
+# Geometry and BA math requires true f32 matmuls.  On an NVIDIA GPU an f32
+# product otherwise runs in TF32, which keeps ~3 decimal digits and breaks
+# rotation algebra and the normal equations.  Kernels that *want* bf16
+# (descriptor matching) opt in by casting their operands to bfloat16 and
+# asking for DEFAULT precision explicitly — this setting does not upcast
+# bf16 inputs.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 __version__ = "0.1.0"

@@ -2,7 +2,7 @@
 
 Replaces the reference's Ceres DENSE_SCHUR BundleAdjuster
 (SfM/src/optimizer.{h,cc}) with a native Levenberg-Marquardt solver designed
-for the MXU: fixed-shape masked track tensors, vmapped per-observation
+for batched device execution: fixed-shape masked track tensors, vmapped per-observation
 Jacobians, block-sparse Schur reduction assembled with segment-sums and
 static scatters, and (for multi-chip) psum-assembled reduced camera systems.
 """

@@ -78,6 +78,7 @@ def cmd_sfm(args):
               f"{scene.n_points()} points -> {fold}")
     print("-- stage times --")
     print(GLOBAL_TRACER.report())
+    return scenes
 
 
 def cmd_slam(args):
@@ -101,9 +102,10 @@ def cmd_dense(args):
     dr = DenseReconstruction(DenseOptions(disp_size=args.disp,
                                           method=args.method))
     with span("dense/run", block_jax=True):
-        dr.run(args.fold, pose_file=args.pose_file, verbose=True)
+        clouds = dr.run(args.fold, pose_file=args.pose_file, verbose=True)
     print("-- stage times --")
     print(GLOBAL_TRACER.report())
+    return clouds
 
 
 def cmd_calib(args):
@@ -132,6 +134,8 @@ def cmd_calib(args):
 
 
 def main(argv=None):
+    """Run one command; returns what it returns (sfm: the list of Scene
+    models, dense: the per-pair point clouds)."""
     from .utils.cache import enable_compilation_cache
     enable_compilation_cache()
     p = argparse.ArgumentParser(prog="metricsfm_tpu")
@@ -170,7 +174,7 @@ def main(argv=None):
     pc.set_defaults(fn=cmd_calib)
 
     args = p.parse_args(argv)
-    args.fn(args)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 @dataclass(frozen=True)
 class DatabaseOptions:
     """Feature database config (ref: basic_structs.h:200-211)."""
-    feature_type: str = "sift"          # "sift" (TPU pallas/XLA) — replaces VLSIFT/CUDASIFT
+    feature_type: str = "sift"          # "sift" (ops/sift.py) — replaces VLSIFT/CUDASIFT
     resize: bool = True
     size_image: int = 2000 * 1500       # target pixel count after resize (ref :155)
     max_keypoints: int = 8192           # fixed keypoint budget per image (ref cap 60000)
@@ -77,7 +77,7 @@ class BundleAdjustOptions:
     #   -1 (default) = AUTO: the driver enables PCG (cap 100) whenever the
     #      problem reaches sfm.th_cg_cameras, dense Cholesky below — so the
     #      solver that replaces Ceres DENSE_SCHUR (optimizer.cc:47) is the
-    #      one that actually runs at scale (round-3 VERDICT missing #3);
+    #      one that actually runs at scale;
     #    0 = always dense Cholesky (OOM-bound above a few hundred cams);
     #   >0 = PCG with that explicit iteration cap.
     cg_iterations: int = -1
@@ -102,25 +102,24 @@ class SfMOptions:
     # — O(log n) full BAs over a run.  "step": the reference-literal
     # schedule, every th_step_full_bundle_adjustment registrations
     # (sfm_incremental.cc:180-183) — n/5 solves of O(n)-sized problems,
-    # quadratic in n and 59% of the 200-image wall clock (round-3 VERDICT
-    # weak #2).  The reference constant is behavioral surface, not a law.
+    # quadratic in n and most of the 200-image wall clock.  The reference
+    # constant is behavioral surface, not a law.
     full_ba_schedule: str = "growth"    # "growth" | "step"
     full_ba_growth_ratio: float = 0.10
     # LM iteration cap for the PERIODIC full BAs (every
     # th_step_full_bundle_adjustment registrations); the final full BA
     # runs to ba.max_iterations.  The scene is re-optimized every few
-    # steps, so late LM iterations of intermediate solves are wasted —
-    # measured 100-cap periodic solves at 468s of a 200-image aerial run
-    # with no ATE benefit over a 30-cap.
+    # steps, so late LM iterations of intermediate solves are wasted: a
+    # 100-cap gave no ATE benefit over a 30-cap on a 200-image aerial run.
     th_step_full_ba_iterations: int = 30
     # Per-image PARTIAL BA budget: iteration cap + relative-cost-decrease
     # tolerance.  The reference submits <=100 Ceres iterations per partial
     # solve (basic_structs.h:181) but Ceres stops on its own
     # function_tolerance; here the local problem is re-solved after every
     # subsequent registration and swept by the periodic/final full BAs, so
-    # a loose 1e-4 tolerance converges the step (measured: r5 200-image
-    # aerial, ATE unchanged at 1e-3 scale) at roughly half the LM
-    # iterations of the 30-cap/1e-6 schedule.  The same loose rtol applies
+    # a loose 1e-4 tolerance converges the step (200-image aerial, ATE
+    # unchanged at 1e-3 scale) at roughly half the LM iterations of the
+    # 30-cap/1e-6 schedule.  The same loose rtol applies
     # to the periodic (non-final) full BAs; the FINAL full BA always runs
     # at ba.rtol (Ceres-parity 1e-6).
     partial_ba_iterations: int = 15
@@ -137,7 +136,7 @@ class SfMOptions:
     checkpoint_every: int = 10          # model checkpoint cadence (images)
     # Above this camera count, full BA switches to the hierarchical
     # submap solver (parallel/submap_ba.py) — the dense reduced camera
-    # system stays per-submap (TPU scaling path; no reference counterpart,
+    # system stays per-submap (device scaling path; no reference counterpart,
     # closest analogue is CMVS clustering sfm_incremental.cc:1255-1256).
     th_hierarchical_cameras: int = 400
     submap_max_cams: int = 64
@@ -169,7 +168,7 @@ class SLAMGPSOptions:
     rematch: bool = False
     use_slam_pt: bool = False           # append new tracks to SLAM points (ref :656-663)
     gps_weight_z_scale: float = 0.2     # z error down-weighted ×1/5 (gps_error_pose_absolute.h:41)
-    ba_threads: int = 8                 # informational; TPU path is data-parallel
+    ba_threads: int = 8                 # informational; the device path is data-parallel
     # GPS relative constraints over consecutive camera triples — off by
     # default, as in the reference (slam_gps.cc:718-720 enables only the
     # absolute term; the relative-angle/distance functors are
@@ -197,7 +196,7 @@ class DenseOptions:
 
 @dataclass(frozen=True)
 class MeshOptions:
-    """Device-mesh / sharding config (TPU-native; no reference counterpart — SURVEY §2.11)."""
+    """Device-mesh / sharding config (no reference counterpart — SURVEY §2.11)."""
     data_axis: str = "data"             # images / pairs / tracks sharded here
     model_axis: str = "model"           # reduced-camera-system sharding for BA
     data_parallel: int = 1

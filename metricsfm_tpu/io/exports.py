@@ -19,6 +19,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..ops import lie, np_geom, projection
+from . import png
 
 
 def _Rt(scene, img):
@@ -263,13 +264,16 @@ def write_undistorted_images(fold: str, scene, image_paths: Dict[int, str],
         path = image_paths.get(img)
         if path is None or not os.path.exists(path):
             continue
-        from PIL import Image
-        src = _np.asarray(Image.open(path), dtype=_np.float32) / 255.0
+        src = png.read_image(path).astype(_np.float32) / 255.0
         m = scene.models[scene.model_of_image[img]]
         out = _np.asarray(undistort_image(src, m.f, m.k1, m.k2))
         out8 = _np.clip(out * 255.0 + 0.5, 0, 255).astype(_np.uint8)
         dst = os.path.join(fold, os.path.basename(path))
-        Image.fromarray(out8).save(dst)
+        if png.is_png(dst):
+            png.write_png(dst, out8)
+        else:
+            from PIL import Image
+            Image.fromarray(out8).save(dst)
         written.append(dst)
         if verbose:
             print(f"undistorted {path} -> {dst}")

@@ -1,7 +1,9 @@
 """ctypes bindings for the native feature-store runtime (native/).
 
-Auto-builds `native/libmsf_native.so` with make on first use and falls back
-to the pure-Python .npz store when a toolchain is unavailable.  The native
+Builds `native/libmsf_native.so` from `native/feature_store.cpp` with make
+on first use (and again whenever the source is newer than the library),
+and falls back to the pure-Python .npz store when a toolchain is
+unavailable.  The native
 path matters for production ingestion: raw fixed-layout records + a
 std::thread batch loader replace per-file npz compression (the reference's
 runtime IO is native C++ for the same reason — database.cc binary files).
@@ -10,13 +12,17 @@ from __future__ import annotations
 
 import ctypes
 import os
+import shutil
 import subprocess
+import tempfile
 from typing import List, Optional
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
-_LIB_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libmsf_native.so"))
+_NATIVE_DIR = os.path.abspath(
+    os.path.join(os.path.dirname(__file__), "..", "..", "native"))
+_LIB_PATH = os.path.join(_NATIVE_DIR, "libmsf_native.so")
+_SRC_PATH = os.path.join(_NATIVE_DIR, "feature_store.cpp")
 _lib = None
 _tried = False
 
@@ -27,9 +33,9 @@ def _load() -> Optional[ctypes.CDLL]:
         return _lib
     _tried = True
     try:
-        if not os.path.exists(_LIB_PATH):
-            subprocess.run(["make", "-C", os.path.abspath(_NATIVE_DIR)],
-                           check=True, capture_output=True, timeout=120)
+        if (not os.path.exists(_LIB_PATH)
+                or os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC_PATH)):
+            _build()
         lib = ctypes.CDLL(_LIB_PATH)
         lib.msf_write_features.restype = ctypes.c_int
         lib.msf_read_header.restype = ctypes.c_int
@@ -39,6 +45,19 @@ def _load() -> Optional[ctypes.CDLL]:
     except Exception:
         _lib = None
     return _lib
+
+
+def _build() -> None:
+    """make the library under a private name, then move it into place in
+    one rename: a concurrent process never loads a half-written file."""
+    tmp = tempfile.mkdtemp(dir=_NATIVE_DIR, prefix=".build-")
+    try:
+        out = os.path.join(tmp, "libmsf_native.so")
+        subprocess.run(["make", "-C", _NATIVE_DIR, f"OUT={out}"],
+                       check=True, capture_output=True, timeout=120)
+        os.replace(out, _LIB_PATH)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def available() -> bool:

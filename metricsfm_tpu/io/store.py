@@ -125,9 +125,9 @@ def write_image_matches(out: str, i: int, matches: Dict):
     pair (i, j) — empty pairs are recorded as processed but carry no
     arrays.  Mirrors the reference's per-image {i}_match binaries
     (fine_matching_graph.cc:182-193).  One file per image instead of one
-    per pair: a 1k-image aerial run writes ~15k pair files at ~13 ms of
-    deflate+create each — ~200 s, the whole match-stage wall (round-5
-    measured); per-image uncompressed shards cut that ~50x.
+    per pair: a 1k-image aerial run writes ~15k pair files, and per-file
+    deflate+create cost more than the matching itself; per-image
+    uncompressed shards cut that ~50x.
     """
     arrs = {"js": np.array(sorted(matches), np.int64)}
     for j, (a, b) in matches.items():

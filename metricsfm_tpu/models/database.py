@@ -2,10 +2,10 @@
 
 Re-design of the reference Database (SfM/src/database.{h,cc}):
   * image discovery by glob over jpg/png/bmp/tiff (database.cc:178-207)
-  * EXIF focal (mm -> pixels) + GPS (database.cc:249-281) via PIL
+  * EXIF focal (mm -> pixels) + GPS (database.cc:249-281)
   * optional resize to a target pixel count (database.cc:300-308)
-  * SIFT feature extraction (TPU pallas/XLA kernel, ops/sift.py) with
-    per-image persistence and resume: only missing entries recomputed
+  * SIFT feature extraction (ops/sift.py) with per-image persistence
+    and resume: only missing entries recomputed
     (feature_index semantics, database.cc:62-100,209-247)
   * vocabulary training + per-image word bags (database.cc:655-867)
 
@@ -22,6 +22,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..config import DatabaseOptions
+from ..io import png
 from ..io import store as fstore
 from ..ops import sift
 from ..utils import exif as exif_util
@@ -42,14 +43,21 @@ def search_image_paths(fold: str) -> List[str]:
 def load_image_gray(path: str, target_pixels: Optional[int] = None):
     """Decode to float grayscale in [0,1]; optional resize to ~target pixels
     (ref database.cc:300-308).  Returns (img (H,W) float32, ratio)."""
-    from PIL import Image
-    im = Image.open(path)
-    w, h = im.size
+    im = png.read_image(path)
+    if im.ndim == 3:
+        # ITU-R 601-2 luma on the color channels (alpha ignored)
+        rgb = im[..., :3].astype(np.float32)
+        g = rgb @ np.array([0.299, 0.587, 0.114], np.float32)
+    else:
+        g = im.astype(np.float32)
+    g /= 255.0
+    h, w = g.shape
     ratio = 1.0
     if target_pixels and w * h > target_pixels:
+        import jax
         ratio = (target_pixels / (w * h)) ** 0.5
-        im = im.resize((max(int(w * ratio), 8), max(int(h * ratio), 8)))
-    g = np.asarray(im.convert("L"), np.float32) / 255.0
+        size = (max(int(h * ratio), 8), max(int(w * ratio), 8))
+        g = np.asarray(jax.image.resize(g, size, "linear", antialias=True))
     return g, ratio
 
 
@@ -95,7 +103,7 @@ class Database:
         """Extract (or resume) SIFT features for every image
         (ref FeatureExtraction, database.cc:51-107).
 
-        TPU re-design of the per-image CUDA loop: images are zero-padded
+        Re-design of the per-image CUDA loop: images are zero-padded
         into shape buckets and processed in vmapped batches — one compile
         per bucket, device-batched extraction, async dispatch overlapping
         host-side decode of the next batch. Keypoint coordinates are
@@ -116,12 +124,10 @@ class Database:
         # cheap size-probe prepass (no pixel decode) to group images into
         # padded shape buckets; decode happens lazily per batch so host
         # memory stays O(batch), not O(dataset)
-        from PIL import Image
         target = self.opts.size_image if self.opts.resize else None
         buckets: Dict[Tuple[int, int], List[int]] = {}
         for i in missing:
-            with Image.open(self.image_paths[i]) as im:
-                w, h = im.size
+            w, h = png.image_size(self.image_paths[i])
             if target and w * h > target:
                 r = (target / (w * h)) ** 0.5
                 w, h = max(int(w * r), 8), max(int(h * r), 8)
@@ -131,8 +137,7 @@ class Database:
         def _drain(pending):
             """Fetch + persist one previously-dispatched batch."""
             chunk, loaded, out_dev, (Hb, Wb) = pending
-            # one host transfer for the whole output tree (per-leaf
-            # np.asarray fetches pay a ~26 ms round trip each)
+            # one host transfer for the whole output tree
             out = jax.device_get(out_dev)
             for b, i in enumerate(chunk):
                 img, ratio, info = loaded[i]
@@ -226,7 +231,7 @@ class Database:
             # Honor voc_branch/voc_level (ref fbow k=10, L=6): the deep tree
             # exists to give k^L leaf words, but materializing 10^6 128-D f32
             # leaves is pointless when the training sample itself is ~2e5
-            # descriptors — so the TPU redesign is a two-level tree with the
+            # descriptors — so this redesign is a two-level tree with the
             # SAME target word count, capped by what the sample can support
             # (>=8 training descriptors per word).
             target_words = min(self.opts.voc_branch ** self.opts.voc_level,

@@ -6,7 +6,7 @@ graph/fine_matching_graph.cc):
 
 * Candidate pairs by one of three strategies (initial_matching_graph.cc:54-78):
   "all" exhaustive, "priori" GPS mutual-kNN in UTM, "feature" BoW top-k.
-* Fine matching: MXU brute-force 2-NN with dual ratio tests
+* Fine matching: brute-force 2-NN on the tensor cores with dual ratio tests
   (fine_matching_graph.cc:42-43) instead of FLANN KD-trees; "good" matches
   (ratio<0.6) estimate F via batched RANSAC, then "all" matches
   (ratio<0.85) are re-filtered by epipolar distance < 3 px
@@ -14,7 +14,7 @@ graph/fine_matching_graph.cc):
 * The driver is BATCHED: candidate pairs are stacked into (B, N, ...) pair
   batches and the whole match->RANSAC->refilter chain runs as ONE jitted
   dispatch per batch (optionally shard_mapped over the mesh `data` axis) —
-  the TPU replacement for the reference's OpenMP loop over pairs
+  the batched replacement for the reference's OpenMP loop over pairs
   (fine_matching_graph.cc:87).
 * Per-pair match shards persist for resume (match_index semantics).
 """
@@ -123,10 +123,9 @@ class MatchGraphBuilder:
         """jit(vmap(gather + one)) over a device-resident feature store.
 
         The per-batch (B, N, D) descriptor tensors are GATHERED ON DEVICE
-        from the uploaded-once store — the round-2 driver restacked them on
-        host per batch, which shipped ~130 MB over the host link per batch
-        and ran the matching stage at ~13 pairs/s against a >9k pairs/s
-        kernel.  Only the (B,) pair indices cross the link now.
+        from the uploaded-once store instead of being restacked on the
+        host per batch (~130 MB per batch).  Only the (B,) pair indices
+        cross the link.
         """
         import jax
         if chunk in self._verify_cache:
@@ -281,8 +280,7 @@ class MatchGraphBuilder:
                                     for a in (ii, jj, keys))
                 keep, idx2, n_keep, ok = verify(desc_all, xy_all, mask_all,
                                                 ii, jj, keys)
-                # one host transfer for all three arrays (per-array
-                # fetches pay a ~26 ms round trip each)
+                # one host transfer for all three arrays
                 keep, idx2, ok = jax.device_get((keep, idx2, ok))
                 for b, (i, j) in enumerate(chunk_pairs):
                     if ok[b]:

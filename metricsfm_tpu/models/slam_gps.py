@@ -306,11 +306,10 @@ class SLAMGPS:
         F epipolar distance and the prior-H displacement, then F-RANSAC
         geo-verification.  Returns {(i, j): (kp_i, kp_j) arrays}.
 
-        TPU re-design: the whole chain (2-NN + gates + F-RANSAC) is ONE
+        Batched re-design: the whole chain (2-NN + gates + F-RANSAC) is ONE
         jitted vmapped dispatch per (B, N, D) pair batch over a
-        device-resident feature store — the round-2 per-pair host loop
-        was the round-1 MatchGraphBuilder antipattern and capped at ~20
-        keyframes (ref windows span thousands, slam_gps.cc:424-553).
+        device-resident feature store, not a per-pair host loop (ref
+        windows span thousands of keyframes, slam_gps.cc:424-553).
         Pair batches shard over the mesh data axis when one is provided.
         """
         import jax

@@ -22,7 +22,7 @@ fixed-shape batched array ops:
 * dense MAP: energy(d) = beta * SAD(d) - log(gamma_floor +
   exp(-(d - prior)^2 / 2 sigma^2)) evaluated for every disparity at once
   (the reference evaluates a candidate set per pixel; the full volume is
-  the MXU/VPU-idiomatic equivalent), WTA + parabolic subpixel, then the
+  the dense equivalent), WTA + parabolic subpixel, then the
   reference's postprocessing (lr_threshold=2 consistency, small-gap
   interpolation, median).
 """
@@ -273,7 +273,7 @@ def stereo_elas(left, right, max_disp: int = 128,
 
     best = jnp.argmin(energy, axis=-1)
     # parabolic subpixel on the energy; neighbour energies via masked
-    # reductions — (H, W, D) take_along_axis gathers are very slow on TPU
+    # reductions over the disparity axis
     bm = jnp.clip(best, 1, max_disp - 2)
     sel = jnp.arange(max_disp)[None, None, :] - bm[..., None]
     em = jnp.sum(jnp.where(sel == -1, energy, 0.0), axis=-1)

@@ -1,6 +1,6 @@
 """Two-view epipolar geometry: F/E estimation, focal recovery, decomposition.
 
-TPU-native re-design of the reference solvers
+Re-design of the reference solvers
 (SfM/src/orientation/fundamental_matrix_eight_point.{h,cc},
  essential_matrix_five_point.{h,cc},
  relative_pose_from_fundamental_matrix.{h,cc},
@@ -10,13 +10,13 @@ TPU-native re-design of the reference solvers
 Design notes (SURVEY.md §7):
 * Convention: x2^T F x1 = 0 with homogeneous centered pixels x = (u, v, 1).
 * Hypotheses are generated *in batch* (vmap over sampled minimal sets) and
-  scored against all correspondences with one einsum — the MXU-idiomatic
+  scored against all correspondences with one einsum — the batched
   replacement for the reference's sequential RANSAC loops.
 * The essential solver is the normalized 8-point system followed by SVD
   projection onto the essential manifold (sigma = (1,1,0)).  This replaces
-  the Nister 5-point solver: on TPU the polynomial eigen-solve is hostile to
-  XLA while extra RANSAC hypotheses are nearly free, so a non-minimal sample
-  with a bigger hypothesis budget is the hardware-matched design.
+  the Nister 5-point solver: the polynomial eigen-solve does not batch
+  well under XLA while extra RANSAC hypotheses are nearly free, so a
+  non-minimal sample with a bigger hypothesis budget is the batched design.
 * Focal-from-F uses the Bougnoux closed form (centered principal points),
   replacing the reference's epipole-rotation construction
   (relative_pose_from_fundamental_matrix.cc:56-123).
@@ -56,7 +56,7 @@ def normalize_points(pts):
 
 
 def _smallest_right_singular(A):
-    """Unit vector minimizing |A v| via eigh of A^T A (TPU-friendly)."""
+    """Unit vector minimizing |A v| via eigh of A^T A (batches under vmap)."""
     AtA = jnp.einsum("...ki,...kj->...ij", A, A)
     _, V = jnp.linalg.eigh(AtA)
     return V[..., :, 0]
@@ -67,11 +67,9 @@ def _nullvec_minimal(A):
     unrolled Householder reflections (QR of A^T; the null vector is the
     last column of Q).
 
-    XLA's batched eigh/SVD on tiny matrices lowers to sequential loops —
-    the vmapped 9x9 eigh of the 8-point RANSAC hypothesis solves
-    measured ~140 ms per 32-pair batch, the match-stage bottleneck at
-    the 1k-image scale; k unrolled reflector applications are pure
-    batched FMAs.  (A shifted power iteration was tried first and is NOT
+    XLA's batched eigh/SVD on tiny matrices lowers to sequential loops
+    or solver-library calls per matrix; k unrolled reflector applications
+    are pure batched FMAs.  (A shifted power iteration was tried first and is NOT
     usable here: the spectral gap ratio (sigma - l8)/sigma of a minimal
     sample is ~1, so 64 iterations leave ~70% of the off-null component
     — measured as a 4x inlier-count collapse.)  Exact for rank-k
@@ -243,7 +241,7 @@ def focals_from_fundamental(F, scale_hint: float = 1000.0):
 
     `scale_hint` (~expected focal in px) rescales pixels so the unknowns are
     O(1) — without it the f32 normal equations span ~12 orders of magnitude
-    and the solve is garbage on TPU dtypes.
+    and the solve is garbage in f32.
     """
     # work in scaled pixel units: x' = diag(1/s,1/s,1) x  =>  F' = D F D, D=diag(s,s,1)
     s = jnp.asarray(scale_hint, F.dtype)

@@ -2,10 +2,11 @@
 
 Capability parity with the reference's 5-point solver
 (SfM/src/orientation/essential_matrix_five_point.{h,cc}: Gauss-Jordan on the
-10x20 cubic-constraint system + 10th-degree polynomial), re-derived for TPU:
+10x20 cubic-constraint system + 10th-degree polynomial), re-derived for
+batched f32 execution:
 
 * The 4-dim nullspace of the 5x9 epipolar system comes from `eigh` of Q^T Q
-  (symmetric eig is TPU-supported; general eig is not).
+  (symmetric eig is available on every JAX backend; general eig is not).
 * The 10 cubic constraints (det(E)=0 and the 9 trace constraints
   2 E E^T E - tr(E E^T) E = 0) are expanded over the 20 monomials of
   (x, y, z) at *trace time* with plain Python polynomial bookkeeping — the
@@ -16,12 +17,12 @@ Capability parity with the reference's 5-point solver
   bisection (polynomial.real_roots_bracketed) — replacing the reference's
   companion-matrix eigen root finder
   (utils/find_polynomial_roots_companion_matrix.cc), which needs the
-  non-symmetric eig TPUs don't have.  Grid evaluation is embarrassingly
+  non-symmetric eig JAX lacks on accelerators.  Grid evaluation is embarrassingly
   vectorizable, and unlike simultaneous-iteration methods it cannot stall
   on clustered roots.
 * All <=10 candidate E's are returned with a validity mask; RANSAC scores
-  every candidate of every sample in one einsum (hypotheses are cheap on
-  MXU, so no per-sample candidate selection is needed).
+  every candidate of every sample in one einsum (hypotheses are cheap in
+  batch, so no per-sample candidate selection is needed).
 
 Unlike the 8-point path (ops/epipolar.py), this solver is exact for planar
 scenes and needs only 5 correspondences.
@@ -226,7 +227,8 @@ def essential_5pt(norm1, norm2):
 
     # Gauss-Newton polish of (x, y, z) on the original 10 constraint
     # equations A m(x,y,z) = 0 — recovers the f32 accuracy lost through the
-    # elimination + determinant chain (f64 needs none, but TPUs run f32).
+    # elimination + determinant chain (f64 would need none; the pipeline
+    # runs f32).
     exps = jnp.asarray(_MONOMIALS, jnp.int32)                    # (20, 3)
 
     def monomials(v):

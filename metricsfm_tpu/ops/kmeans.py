@@ -1,12 +1,12 @@
 """K-means vocabulary, BoW transform, inverted-file similarity.
 
-TPU-native replacement for the fbow vocabulary stack
+Replacement for the fbow vocabulary stack
 (thirdparty/fbow: hierarchical k-means k=10 L=6, SURVEY.md §2.3;
  src/graph/similarity_graph.cc — inverted-file co-occurrence with stop
  words, and pairwise BoW distance).
 
 Design: a (shallow) hierarchical k-means tree trained with batched Lloyd
-iterations — every assignment is one MXU matmul (-2 a.b distance trick).
+iterations — every assignment is one matmul (-2 a.b distance trick).
 The BoW "vector" is the word-count histogram; image-pair similarity is one
 big counts @ counts.T matmul with idf weighting and stop-word zeroing —
 the inverted-file semantics as dense linear algebra.
@@ -25,7 +25,7 @@ class Vocabulary(NamedTuple):
     """Two-level k-means tree: coarse (B1, D) + fine (B1, B2, D) centroids.
 
     n_words = B1 * B2.  Replaces fbow's k=10/L=6 deep tree with a shallow
-    MXU-friendly one (two matmuls per assignment, same BoW semantics).
+    matmul-friendly one (two matmuls per assignment, same BoW semantics).
     """
     coarse: jnp.ndarray
     fine: jnp.ndarray
@@ -36,7 +36,7 @@ class Vocabulary(NamedTuple):
 
 
 def _assign(desc, centroids):
-    """Nearest-centroid index per row; one matmul on the MXU."""
+    """Nearest-centroid index per row; one matmul."""
     sim = jnp.dot(desc, centroids.T, preferred_element_type=jnp.float32)
     c2 = jnp.sum(centroids * centroids, axis=-1)
     d = c2[None, :] - 2.0 * sim
@@ -154,7 +154,7 @@ def similarity_matrix(counts, stop_word_frac: float = 0.01):
     num_words_/100, GenerateInvertedFile condition 2 — note the threshold
     is derived from the VOCABULARY size, not the image count); surviving
     rows are idf-weighted and L2-normalized; similarity is the cosine
-    matrix (one MXU matmul).  Diagonal zeroed.
+    matrix (one matmul).  Diagonal zeroed.
     """
     n = counts.shape[0]
     n_words = counts.shape[1]
@@ -170,14 +170,14 @@ def similarity_matrix(counts, stop_word_frac: float = 0.01):
 
 @jax.jit
 def word_intersection_counts(counts):
-    """Number of common distinct words per image pair, one MXU matmul.
+    """Number of common distinct words per image pair, one matmul.
 
     The cheap pre-seeding gate of the reference's initial matching graph
     (initial_matching_graph.cc:210-289: candidate pairs whose word-id
     intersection yields fewer than ~30 seed matches are dropped before any
     fine matching).  SIFT BoW histograms are near-binary at usable vocab
     sizes, so presence-intersection (an (n_imgs, n_words) boolean matmul)
-    is the TPU-native equivalent of the reference's sorted-list walk.
+    is the dense equivalent of the reference's sorted-list walk.
     """
     present = (counts > 0).astype(jnp.float32)
     return jnp.dot(present, present.T, preferred_element_type=jnp.float32)
@@ -194,8 +194,8 @@ def similarity_chunked(word_lists, n_words: int,
                        stop_word_frac: float = 0.01, block: int = 8192):
     """similarity_matrix + word_intersection_counts from per-image word-id
     lists, streamed over word BLOCKS — never materializes the
-    (n_images, n_words) counts matrix (1.3 GB+ at 5k images x 65k words,
-    the round-2 image-count cap; ref similarity_graph.cc:47-117 streams an
+    (n_images, n_words) counts matrix (1.3 GB+ at 5k images x 65k words;
+    ref similarity_graph.cc:47-117 streams an
     inverted file for the same reason).
 
     Args:

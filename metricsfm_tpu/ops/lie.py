@@ -1,6 +1,6 @@
 """SO(3) parameterizations: rotation matrix <-> angle-axis <-> quaternion <-> Euler.
 
-TPU-native re-design of the reference's rotation conversions
+Re-design of the reference's rotation conversions
 (SfM/src/utils/basic_funcs.h:201-219) and the dual pose bookkeeping in
 Camera (SfM/src/camera.cc:43-137).  All functions are pure, batched-friendly
 (vmap over leading axes), and numerically safe at the theta->0 limit via

@@ -30,7 +30,7 @@ def hough_lines(edge_mask, weights=None, n_theta: int = 180,
     """Weighted Hough accumulator over (theta, rho).
 
     Accumulation is a one-hot matmul (edge pixels x rho bins per theta),
-    the TPU-friendly equivalent of scatter voting (houghlines.cpp).
+    the dense equivalent of scatter voting (houghlines.cpp).
     Returns (acc (n_theta, n_rho), thetas, rhos).
     """
     H, W = edge_mask.shape
@@ -145,7 +145,7 @@ def local_orientation(img, pts, win_half: int = 20, sigma_i: float = 0.1):
     grow intensity-similar pixels around pt in a 20-px half-window, then
     average their gradient).
 
-    Dense TPU analogue: a (2w, 2w) window is sliced per point; the hard
+    Dense analogue: a (2w, 2w) window is sliced per point; the hard
     region-growing is relaxed to a soft weight
     exp(-(I - I_seed)^2 / (2 sigma_i^2)) and (dx, dy) is the weighted
     gradient mean, sign-normalized like an average over the grown region.

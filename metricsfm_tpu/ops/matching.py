@@ -1,15 +1,15 @@
-"""Brute-force descriptor matching on the MXU.
+"""Brute-force descriptor matching on the tensor cores.
 
-TPU-native replacement for the reference's KD-tree / GPU matchers
+Replaces the reference's KD-tree / GPU matchers
 (SfM/src/feature/feature_matching.{h,cpp} FLANN paths,
  feature_matching_cuda_sift.cpp brute-force,
  graph/fine_matching_graph.cc:71-147 ratio tests + F-verify).
 
-Brute force is the MXU-idiomatic choice (SURVEY.md §7): descriptor
-distances are one big matmul (|a|^2 + |b|^2 - 2 a.b), 2-NN is a running
-top-2 reduction over column chunks, and the dual ratio tests (0.6 "good" /
-0.85 "all") are elementwise masks.  Matches cudaSift matcher semantics with
-exact (not approximate) nearest neighbours.
+Brute force suits a matrix unit (SURVEY.md §7): descriptor distances are
+one big matmul (|a|^2 + |b|^2 - 2 a.b), 2-NN is a running top-2 reduction
+over column blocks, and the dual ratio tests (0.6 "good" / 0.85 "all") are
+elementwise masks.  Matches cudaSift matcher semantics with exact (not
+approximate) nearest neighbours.
 
 Descriptors are L2-normalized SIFT vectors; matmuls run in bfloat16 (the
 similarity ranking tolerates bf16; distances used in ratio tests are
@@ -33,7 +33,7 @@ def knn2(desc1, desc2, mask2=None, chunk: int = 2048, use_bf16: bool = True):
       desc2: (N2, D) database descriptors.
       mask2: (N2,) validity of database rows (padded slots excluded).
       chunk: column-block size for the scan (bounds memory at N1*chunk).
-      use_bf16: run the similarity matmul in bfloat16 on the MXU.
+      use_bf16: run the similarity matmul in bfloat16.
 
     Returns:
       (d1_sq, d2_sq, idx1): best/second-best squared L2 distances (N1,),
@@ -60,15 +60,12 @@ def knn2(desc1, desc2, mask2=None, chunk: int = 2048, use_bf16: bool = True):
     def body(carry, blk):
         best, second, best_idx = carry
         d_blk, m_blk, off = blk
-        # DEFAULT precision: let the bf16 operands use the fast MXU path
-        # (the package sets jax_default_matmul_precision="highest" for
-        # geometry/BA — wrong trade for descriptor similarity ranking)
+        # DEFAULT precision: bf16 operands on the tensor cores (the package
+        # sets jax_default_matmul_precision="highest" for geometry/BA —
+        # the wrong trade for descriptor similarity ranking)
         sim = jnp.dot(q, d_blk.T, preferred_element_type=jnp.float32,
                       precision=jax.lax.Precision.DEFAULT)
         sim = jnp.where(m_blk[None, :], sim, neg_inf)
-        # NOTE: max/argmax/mask/max beats lax.top_k(sim, 2) by ~7x on TPU
-        # (measured 1475 vs 196 pairs/s at 4096x2048) — top_k lowers to a
-        # full sort variant; XLA fuses this chain into the matmul epilogue
         blk_best = jnp.max(sim, axis=1)
         blk_arg = jnp.argmax(sim, axis=1).astype(jnp.int32)
         cols = jnp.arange(sim.shape[1])
@@ -92,6 +89,17 @@ def knn2(desc1, desc2, mask2=None, chunk: int = 2048, use_bf16: bool = True):
     return d1_sq, d2_sq, best_idx
 
 
+def nearest2(desc1, desc2, mask2=None, chunk: int = 2048):
+    """knn2 as the pipeline runs it: the fused Pallas/Triton kernel
+    (pallas/match_kernel.py) when the process's default backend is a GPU,
+    the XLA scan `knn2` elsewhere.  Dispatch follows jax.default_backend()
+    — the process default, not input placement."""
+    if jax.default_backend() == "gpu":
+        from .pallas.match_kernel import knn2_triton
+        return knn2_triton(desc1, desc2, mask2)
+    return knn2(desc1, desc2, mask2, chunk=chunk)
+
+
 @partial(jax.jit, static_argnames=("chunk",))
 def match_pair(desc1, desc2, mask1=None, mask2=None,
                ratio_good: float = 0.6, ratio_all: float = 0.85,
@@ -102,24 +110,14 @@ def match_pair(desc1, desc2, mask1=None, mask2=None,
     selects the "good" subset used to estimate F, a loose ratio (<0.85)
     keeps candidate matches; both returned as masks over desc1 rows.
 
-    On TPU the 2-NN runs through the fused Pallas kernel (similarities
-    stay in VMEM, ~4.8x the XLA scan path when pairs are batched via
-    vmap); elsewhere (and for databases beyond the kernel's 8192-column
-    packing limit) the XLA scan path is used.  Dispatch follows
-    jax.default_backend() — the process default, not input placement.
+    The 2-NN runs through `nearest2`.
 
     Returns dict:
       idx2 (N1,): best-neighbour index into desc2,
       good (N1,), all (N1,): ratio-test masks (L2 ratio on distances),
       dist_sq (N1,): best squared distance.
     """
-    use_pallas = (jax.default_backend() == "tpu"
-                  and desc2.shape[0] + ((-desc2.shape[0]) % 128) <= 8192)
-    if use_pallas:
-        from .pallas.match_kernel import _knn2_pallas_impl
-        d1_sq, d2_sq, idx2 = _knn2_pallas_impl(desc1, desc2, mask2)
-    else:
-        d1_sq, d2_sq, idx2 = knn2(desc1, desc2, mask2, chunk=chunk)
+    d1_sq, d2_sq, idx2 = nearest2(desc1, desc2, mask2, chunk=chunk)
     m1 = jnp.ones(desc1.shape[:1], bool) if mask1 is None else mask1.astype(bool)
     # L2 ratio: d1/d2 < r  <=>  d1^2 < r^2 d2^2
     safe2 = jnp.maximum(d2_sq, 1e-12)

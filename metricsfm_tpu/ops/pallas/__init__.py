@@ -1,1 +1,1 @@
-"""Hand-written Pallas TPU kernels for the hot ops."""
+"""Hand-written Pallas kernels for NVIDIA GPUs (Triton route)."""

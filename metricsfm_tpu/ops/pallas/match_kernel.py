@@ -1,27 +1,21 @@
-"""Fused 2-NN descriptor matching kernel (Pallas/TPU).
+"""Fused exact 2-NN descriptor matching for NVIDIA GPUs (Pallas, Triton route).
 
-The hot op of the matching layer (SURVEY.md §3.1 HOT LOOP #2): for each
-query descriptor find its best + second-best database neighbour.  The XLA
-version (ops/matching.knn2) materializes (BQ, chunk) similarity tiles and
-re-reads them for max/argmax/second-max; this kernel keeps each similarity
-tile in VMEM and fuses the bf16 MXU matmul with a packed top-2 epilogue —
-similarities never touch HBM.
+The hot op of the matching layer (SURVEY.md §3.1 HOT LOOP #2): for every
+query descriptor find its best and second-best database neighbour.  The
+XLA form (ops/matching.knn2) writes each (N1, chunk) f32 similarity tile to
+device memory and reads it back for max / argmax / second max; at
+8,192 x 8,192 that is ~0.8 GB of traffic per pair against a 17 GFLOP
+product.  This kernel keeps the running top-2 in registers instead:
 
-Design notes (measured on the round-2 TPU, 4096x4096x128 pairs):
-* the dot runs in bf16 with f32 accumulation (Mosaic lowers
-  bf16xbf16->f32 cleanly; the round-1 f32-cast workaround was a
-  misdiagnosis and cost ~2x).
-* top-2 + argmax use ONE integer packing pass instead of argmax/iota/
-  where chains: pk = round(sim * 2^17) * 2^13 + col packs the quantized
-  similarity into the high 18 bits and the column id into the low 13, so
-  a plain `max` returns value AND index, and one masked second `max`
-  returns the runner-up.  Mosaic's argmax lowering measured ~15% slower.
-* one query block per grid step with the whole database block resident;
-  batching pairs (via vmap, which prepends a grid dimension) is essential
-  for throughput — a single pair is latency-bound (~1.3 ms), 64 in flight
-  reach ~8.1k pairs/s (~35 bf16 TFLOP/s vs the chip's ~64 measured on a
-  square matmul; round-1 shipped 2.16k).
+* grid over (pair, query block of `_BQ` rows); pairs come from vmap, whose
+  batching rule prepends the grid axis;
+* inside a program, a loop over `_BK`-column database blocks: one bf16
+  `pl.dot` with f32 accumulation, the validity mask and the block top-2 in
+  the epilogue, merged into the running (best, second, index) vectors;
+* the similarity tile never leaves the SM.
 
+Values are exact f32 similarities and indices exact int32; ties resolve to
+the lowest database index, as jnp.argmax does in the XLA form.
 Matches cudaSift brute-force matcher semantics
 (feature_matching_cuda_sift.cpp:21-120) with exact nearest neighbours.
 """
@@ -32,243 +26,88 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-# similarity quantization: 2^17 steps over [-1, 1] => d^2 error ~1.5e-5;
-# 13 low bits hold the column id (database blocks padded to <= 8192)
-_VAL_SCALE = float(1 << 17)
-_COL_BITS = 13
-_COL_MASK = (1 << _COL_BITS) - 1
-_MAX_DB = 1 << _COL_BITS
+_BQ = 64          # query rows per program
+_BK = 128         # database columns per loop step
+_NUM_WARPS = 4
+_NUM_STAGES = 3   # software-pipelining depth of the database-block loop
 
 
-def _kernel(q_ref, db_ref, mask_ref, out_ref):
-    # precision=DEFAULT overrides the package-wide
-    # jax_default_matmul_precision="highest" (set for f32 geometry/BA):
-    # "highest" stamps contract_precision<fp32> onto the bf16 dot and
-    # Mosaic rejects it ("Bad lhs type") — the actual cause of round-1's
-    # f32-cast workaround
-    sim = jnp.dot(q_ref[:], db_ref[:], preferred_element_type=jnp.float32,
-                  precision=jax.lax.Precision.DEFAULT)
-    # masked slots get sim=-1.9 => packed value below any real similarity
-    # of unit descriptors (sim in [-1, 1]) without overflowing int32
-    sim = jnp.where(mask_ref[:] > 0, sim, -1.9)
-    cols = jax.lax.broadcasted_iota(jnp.int32, sim.shape, 1)
-    # fused packing: one scaled cast + mask/or instead of cast+mul+add
-    # (round-5 sweep: 10.3k vs 10.0k pairs/s at tile=2048; the truncate-
-    # then-mask keeps the value bits identical to the mul+add form for
-    # sim in [-1.9, 1] because the cast itself truncates toward zero)
-    pk = ((sim * (_VAL_SCALE * (1 << _COL_BITS))).astype(jnp.int32)
-          & jnp.int32(~_COL_MASK)) | cols
-    m1 = jnp.max(pk, axis=1)
-    # packed values are unique (distinct col ids in the low bits), so value
-    # equality identifies exactly the argmax slot — one op cheaper than
-    # unpacking the index and comparing against the iota
-    pk2 = jnp.where(pk == m1[:, None], jnp.int32(-(2 ** 31)), pk)
-    m2 = jnp.max(pk2, axis=1)
-    out_ref[0, :] = m1
-    out_ref[1, :] = m2
+def _kernel(q_ref, db_ref, m_ref, d1_ref, d2_ref, idx_ref, *, n_blocks):
+    q = q_ref[...]                                        # (BQ, D) bf16
+    neg_inf = jnp.float32(-jnp.inf)
+    cols = jnp.arange(_BK, dtype=jnp.int32)
+
+    def body(j, carry):
+        best, second, best_idx = carry
+        start = j * _BK
+        db = db_ref[pl.ds(start, _BK), :]                 # (BK, D) bf16
+        valid = m_ref[pl.ds(start, _BK)]                  # (BK,) int32
+        sim = pl.dot(q, db, trans_b=True,
+                     precision=jax.lax.Precision.DEFAULT)  # (BQ, BK) f32
+        sim = jnp.where(valid[None, :] > 0, sim, neg_inf)
+        blk_best = jnp.max(sim, axis=1)
+        # lowest column holding the block maximum (jnp.argmax's tie rule)
+        blk_arg = jnp.min(jnp.where(sim == blk_best[:, None], cols[None, :],
+                                    _BK), axis=1)
+        blk_second = jnp.max(jnp.where(cols[None, :] == blk_arg[:, None],
+                                       neg_inf, sim), axis=1)
+        # strict '>' keeps the earlier block's index on ties
+        new_idx = jnp.where(blk_best > best, start + blk_arg, best_idx)
+        new_second = jnp.maximum(jnp.minimum(best, blk_best),
+                                 jnp.maximum(second, blk_second))
+        return jnp.maximum(best, blk_best), new_second, new_idx
+
+    bq = q.shape[0]
+    init = (jnp.full((bq,), neg_inf, jnp.float32),
+            jnp.full((bq,), neg_inf, jnp.float32),
+            jnp.zeros((bq,), jnp.int32))
+    best, second, best_idx = jax.lax.fori_loop(0, n_blocks, body, init)
+    d1_ref[...] = jnp.maximum(2.0 - 2.0 * best, 0.0)
+    d2_ref[...] = jnp.maximum(2.0 - 2.0 * second, 0.0)
+    idx_ref[...] = best_idx
 
 
-def _knn2_pallas_impl(desc1, desc2, mask2=None, tile: int = 512,
-                      interpret: bool = False):
-    """Unjitted body — callers already under jit/vmap use this directly
-    (nesting jit inside vmap inside jit measured a Mosaic compile crash).
+def knn2_triton(desc1, desc2, mask2=None, interpret: bool = False):
+    """Exact 2-NN desc1 -> desc2 through the fused kernel.
 
-    `tile` is the QUERY block size per grid step (the whole database stays
-    resident).  Round-3 layout study at 4096x4096x128, 96 pairs in flight,
-    real-TPU numbers:
-      * this layout (query-tiled, db resident):   ~10.2k pairs/s
-      * db-tiled + running top-2 in VMEM scratch:  6.2k (tile=1024) —
-        Mosaic does NOT overlap tile j's VPU epilogue with tile j+1's
-        matmul; each extra grid step just adds fixed overhead
-      * matmul-only (epilogue stripped):          12.7k  => the top-2
-        epilogue costs ~20%, the rest is the matmul itself
-      * roofline: the chip sustains 86 TFLOP/s on an 8192^3 bf16 square
-        matmul; at 4.3 GFLOP/pair that is 19.9k pairs/s at 100% MFU with
-        a zero-cost epilogue — shipped throughput is ~51% of that bound
-      * int8 is NOT a speedup on this platform: XLA emulates s8xs8->s32
-        at 0.05 TOP/s and Mosaic lowers it at bf16 rate (int8_full 9.3k
-        vs bf16_full 9.9k); fp8 dots fail to compile.  The int8 kernel
-        below is kept for TPU generations whose Mosaic lowers s8 dots to
-        the double-rate MXU path.
-      * software pipelining REGRESSES on this Mosaic (round-5 measured,
-        _scratch/match_pipelined.py): the double-buffered VMEM-scratch
-        variant that issues tile i's dot and tile i-1's epilogue in the
-        same "arbitrary" grid step lands at 7.2-7.5k pairs/s vs 9.7-10.0k
-        for this kernel — Mosaic serializes the scratch epilogue with the
-        next dot instead of overlapping MXU/VPU, so the extra buffering
-        is pure cost.  With the epilogue inline (~20%) the kernel's own
-        matmul-only bound is 12.7k pairs/s at this (4096, 4096, 128)
-        shape; remaining tuning headroom is the epilogue op count
-        (_scratch/match_epilogue_tune.py: fused and/or packing +3%).
+    Same contract as ops.matching.knn2 (bf16 similarities, f32 results):
+    returns (d1_sq, d2_sq, idx) for unit-norm rows, d^2 = 2 - 2 s.  Rows
+    are padded to the block sizes and the descriptor width to a power of
+    two (zero columns change no dot product), so every shape is accepted.
+    Batch by vmapping.  `interpret=True` runs the kernel body on the CPU
+    (tests); otherwise it compiles only for a GPU.
     """
     N1, D = desc1.shape
     N2 = desc2.shape[0]
-    pad1 = (-N1) % tile
-    pad2 = (-N2) % 128
-    n2p = N2 + pad2
-    if n2p > _MAX_DB:
-        raise ValueError(f"database too large for packed kernel: {n2p} > {_MAX_DB}")
-    q = jnp.pad(desc1, ((0, pad1), (0, 0))).astype(jnp.bfloat16)
-    db = jnp.pad(desc2, ((0, pad2), (0, 0))).astype(jnp.bfloat16).T  # (D, N2p)
-    m = jnp.ones((N2,), jnp.float32) if mask2 is None else mask2.astype(jnp.float32)
-    m = jnp.pad(m, (0, pad2))[None, :]                      # (1, N2p)
-
-    n1p = N1 + pad1
-    nq = n1p // tile
-
-    out = pl.pallas_call(
-        _kernel,
-        grid=(nq,),
-        in_specs=[
-            pl.BlockSpec((tile, D), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((D, n2p), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, n2p), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        # (2, tile) int32 row blocks: packed (best, second)
-        out_specs=pl.BlockSpec((2, tile), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((2, n1p), jnp.int32),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=110 * 1024 * 1024,
-            # query blocks are independent: no cross-step carries
-            dimension_semantics=("parallel",)),
-        interpret=interpret,
-    )(q, db, m)
-
-    m1 = out[0, :N1]
-    m2 = out[1, :N1]
-    idx = m1 & _COL_MASK
-    best = (m1 >> _COL_BITS).astype(jnp.float32) / _VAL_SCALE
-    second = (m2 >> _COL_BITS).astype(jnp.float32) / _VAL_SCALE
-    d1_sq = jnp.maximum(2.0 - 2.0 * best, 0.0)
-    d2_sq = jnp.maximum(2.0 - 2.0 * second, 0.0)
-    return d1_sq, d2_sq, idx
-
-
-# ---------------------------------------------------------------------------
-# int8 variant: 2x MXU throughput on TPU v5e (394 int8 TOP/s vs 197 bf16
-# TFLOP/s peak).  SIFT descriptors are non-negative and uint8-quantized in
-# the reference (feature_extractor_vl_sift.cpp:202, x512 saturated at 255);
-# this path quantizes the unit-norm f32 descriptors to [0,127] (scale 256 =
-# half the reference's quantum) and does the exact 2-NN in the QUANTIZED
-# space: top-2 of val = 2*a.b_int - |b|^2_int per row, so argmax order
-# equals quantized-distance order even though |b|^2 varies per column.
-# ---------------------------------------------------------------------------
-
-_INT8_SCALE = 256.0           # q = clip(round(d * 256), 0, 127)
-_VAL_SHIFT = 6                # packed value quantum: 64 int units
-_MASKED_VAL = -(1 << 23)      # below any real val (>= -|b|^2 >= -2.1e6)
-
-
-def quantize_desc_int8(desc):
-    """Quantize non-negative L2-normalized descriptors to int8 [0, 127]."""
-    return jnp.clip(jnp.round(desc * _INT8_SCALE), 0, 127).astype(jnp.int8)
-
-
-def _kernel_int8(q_ref, db_ref, nb_ref, out_ref):
-    sim = jnp.dot(q_ref[:], db_ref[:], preferred_element_type=jnp.int32,
-                  precision=jax.lax.Precision.DEFAULT)
-    # val = 2 a.b - |b|^2 (int units): per-row argmax(val) == argmin(d^2).
-    # masked columns carry nb = 1<<26 so val is hugely negative; the clamp
-    # pins them at _MASKED_VAL and keeps the packing overflow-free
-    val = jnp.maximum(2 * sim - nb_ref[:], _MASKED_VAL)
-    cols = jax.lax.broadcasted_iota(jnp.int32, val.shape, 1)
-    # low 13 bits = col (exact even for negative val: the product is a
-    # multiple of 2^13), high bits = val >> 6
-    pk = (val >> _VAL_SHIFT) * (1 << _COL_BITS) + cols
-    m1 = jnp.max(pk, axis=1)
-    arg = m1 & _COL_MASK
-    pk2 = jnp.where(cols == arg[:, None], jnp.int32(-(2 ** 31) + 1), pk)
-    m2 = jnp.max(pk2, axis=1)
-    out_ref[0, :] = m1
-    out_ref[1, :] = m2
-
-
-def _knn2_pallas_int8_impl(desc1, desc2, mask2=None, bq: int = 1024,
-                           interpret: bool = False):
-    """int8 fused 2-NN.  Returns (d1_sq, d2_sq, idx) in unit-norm distance
-    units (d^2 in [0, ~2]), quantized to ~1e-3."""
-    N1, D = desc1.shape
-    N2 = desc2.shape[0]
-    pad1 = (-N1) % bq
-    pad2 = (-N2) % 128
-    n2p = N2 + pad2
-    if n2p > _MAX_DB:
-        raise ValueError(
-            f"database too large for packed kernel: {n2p} > {_MAX_DB}")
-    q8 = quantize_desc_int8(jnp.pad(desc1, ((0, pad1), (0, 0))))
-    db8 = quantize_desc_int8(jnp.pad(desc2, ((0, pad2), (0, 0))))
-    nb = jnp.sum(db8.astype(jnp.int32) ** 2, axis=1)        # (N2p,)
-    m = jnp.ones((N2,), bool) if mask2 is None else mask2.astype(bool)
+    Dp = max(16, pl.next_power_of_2(D))
+    pad1 = (-N1) % _BQ
+    pad2 = (-N2) % _BK
+    q = jnp.pad(desc1, ((0, pad1), (0, Dp - D))).astype(jnp.bfloat16)
+    db = jnp.pad(desc2, ((0, pad2), (0, Dp - D))).astype(jnp.bfloat16)
+    m = (jnp.ones((N2,), jnp.int32) if mask2 is None
+         else mask2.astype(jnp.int32))
     m = jnp.pad(m, (0, pad2))
-    nb = jnp.where(m, nb, jnp.int32(1 << 26))[None, :]      # (1, N2p)
+    n1p, n2p = N1 + pad1, N2 + pad2
 
-    n1p = N1 + pad1
-    nq = n1p // bq
-    out = pl.pallas_call(
-        _kernel_int8,
-        grid=(nq,),
+    # under shard_map the outputs vary over the same mesh axes as the inputs
+    vma = jax.typeof(q).vma | jax.typeof(db).vma | jax.typeof(m).vma
+    row = lambda dt: jax.ShapeDtypeStruct((n1p,), dt, vma=vma)
+    d1_sq, d2_sq, idx = pl.pallas_call(
+        functools.partial(_kernel, n_blocks=n2p // _BK),
+        grid=(n1p // _BQ,),
         in_specs=[
-            pl.BlockSpec((bq, D), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((D, n2p), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, n2p), lambda i: (0, 0), memory_space=pltpu.VMEM),
+            pl.BlockSpec((_BQ, Dp), lambda i: (i, 0)),
+            pl.BlockSpec((n2p, Dp), lambda i: (0, 0)),
+            pl.BlockSpec((n2p,), lambda i: (0,)),
         ],
-        out_specs=pl.BlockSpec((2, bq), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((2, n1p), jnp.int32),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=110 * 1024 * 1024,
-            dimension_semantics=("arbitrary",)),
+        out_specs=[pl.BlockSpec((_BQ,), lambda i: (i,))] * 3,
+        out_shape=[row(jnp.float32), row(jnp.float32), row(jnp.int32)],
+        compiler_params=plgpu.CompilerParams(num_warps=_NUM_WARPS,
+                                             num_stages=_NUM_STAGES),
+        backend="triton",
         interpret=interpret,
-    )(q8, db8.T, nb)
-
-    na = jnp.sum(q8[:N1].astype(jnp.int32) ** 2, axis=1)    # (N1,)
-    m1 = out[0, :N1]
-    m2 = out[1, :N1]
-    idx = m1 & _COL_MASK
-    val1 = (m1 >> _COL_BITS) << _VAL_SHIFT
-    val2 = (m2 >> _COL_BITS) << _VAL_SHIFT
-    inv_s2 = 1.0 / (_INT8_SCALE * _INT8_SCALE)
-    d1_sq = jnp.maximum(na - val1, 0).astype(jnp.float32) * inv_s2
-    d2_sq = jnp.maximum(na - val2, 0).astype(jnp.float32) * inv_s2
-    return d1_sq, d2_sq, idx
-
-
-@functools.partial(jax.jit, static_argnames=("bq", "interpret"))
-def knn2_pallas_int8(desc1, desc2, mask2=None, bq: int = 1024,
-                     interpret: bool = False):
-    """Exact-in-quantized-space 2-NN via the int8 fused kernel."""
-    return _knn2_pallas_int8_impl(desc1, desc2, mask2, bq=bq,
-                                  interpret=interpret)
-
-
-@functools.partial(jax.jit, static_argnames=("tile", "interpret"))
-def knn2_pallas(desc1, desc2, mask2=None, tile: int = 512,
-                interpret: bool = False):
-    """Exact 2-NN via the fused kernel.
-
-    Args:
-      desc1: (N1, D) L2-normalized queries (padded to `tile` internally).
-      desc2: (N2, D) database (N2 <= 8192 after padding to a lane multiple),
-             fully resident across grid steps.
-      mask2: (N2,) validity.
-    Returns (d1_sq, d2_sq, idx) like ops.matching.knn2.  Batch by vmapping
-    (lifts the grid); similarity values are quantized to 2^-17.
-    """
-    return _knn2_pallas_impl(desc1, desc2, mask2, tile=tile,
-                             interpret=interpret)
-
-
-def match_pair_pallas(desc1, desc2, mask1=None, mask2=None,
-                      ratio_good: float = 0.6, ratio_all: float = 0.85,
-                      tile: int = 512, interpret: bool = False):
-    """Drop-in fused variant of ops.matching.match_pair."""
-    d1_sq, d2_sq, idx2 = _knn2_pallas_impl(desc1, desc2, mask2, tile=tile,
-                                           interpret=interpret)
-    m1 = jnp.ones(desc1.shape[:1], bool) if mask1 is None else mask1.astype(bool)
-    safe2 = jnp.maximum(d2_sq, 1e-12)
-    good = (d1_sq < ratio_good ** 2 * safe2) & m1
-    allm = (d1_sq < ratio_all ** 2 * safe2) & m1
-    return {"idx2": idx2, "good": good, "all": allm, "dist_sq": d1_sq}
+        name="knn2_top2",
+    )(q, db, m)
+    return d1_sq[:N1], d2_sq[:N1], idx[:N1]

@@ -1,6 +1,6 @@
 """Absolute pose (PnP) solvers: P3P, EPnP, unknown-focal grid search.
 
-TPU-native re-design of the reference pose solvers
+Re-design of the reference pose solvers
 (SfM/src/orientation/absolute_pose_via_p3p.{h,cc},
  absolute_pose_via_epnp.{h,cc}, absolute_pose_via_epnpf.{h,cc},
  absolute_pose_estimation.{h,cc}).
@@ -311,7 +311,7 @@ def p4pf(Xw, obs_px, f_hyp, num_focal_samples: int = 128,
     """Pose + focal from exactly 4 points (ref absolute_pose_via_p4pf.{h,cc}).
 
     The reference uses a 903-line generated Groebner-basis template
-    (p4pf_helper.cc); on TPU a batched focal sweep is the hardware-matched
+    (p4pf_helper.cc); a batched focal sweep is the vectorized
     equivalent: P3P (Grunert quartic) on points 0..2 for every focal sample
     at once, scored by the 4th point's reprojection, then Newton-polished on
     log f.  Same minimal-input capability, no generated code.

@@ -3,10 +3,11 @@
 Replaces the reference's companion-matrix eigen root finders
 (SfM/src/utils/polynomial.{h,cc},
  utils/find_polynomial_roots_companion_matrix.{h,cc}).  Non-symmetric
-eigendecomposition is unsupported on TPU, so roots are found with a fixed
+eigendecomposition is unavailable on JAX's accelerator backends, so roots
+are found with a fixed
 iteration-count Durand-Kerner (Weierstrass) method using *manual* complex
 arithmetic (re/im pairs of real arrays) — no complex dtype, fully jittable
-and vmappable on TPU.
+and vmappable on any backend.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Camera model and projection kernels.
 
-TPU-native re-design of the reference data model (SfM/src/basic_structs.h:48-145,
+Re-design of the reference data model (SfM/src/basic_structs.h:48-145,
 camera.{h,cc}, structure.cc:267-300):
 
 * Pose is stored as a 6-vector ``[aa(3), t(3)]`` (world->camera), the same BA

@@ -1,6 +1,6 @@
 """Batched two-view RANSAC harness.
 
-TPU-native replacement for the reference's sequential RANSAC loops
+Batched replacement for the reference's sequential RANSAC loops
 (fundamental_matrix_eight_point.cc:30-97 — 200 hypotheses, min total error;
  essential_matrix_five_point.cc:30-93 — 100 hypotheses;
  utils/geo_verification.cc:30-79 — cv::findFundamentalMat @3px, >=30 inliers).
@@ -25,8 +25,7 @@ def _sample_indices(key, n, mask, num_hypotheses, sample_size):
     Gumbel top-k: one (H, N) gumbel draw + top_k is an exact uniform
     without-replacement sample over the masked support — the vmapped
     jax.random.choice(p=softmax) this replaces ran a per-hypothesis
-    weighted-reservoir chain that measured ~50 ms per 32-pair batch
-    (a quarter of the match-verify wall; round 5)."""
+    weighted-reservoir chain."""
     logits = jnp.where(mask, 0.0, -1e9)
     g = jax.random.gumbel(key, (num_hypotheses, n), dtype=jnp.float32)
     _, idx = jax.lax.top_k(g + logits[None, :], sample_size)
@@ -78,7 +77,7 @@ def essential_ransac(norm1, norm2, key, mask=None, num_hypotheses: int = 256,
 
     Replaces the reference 5-point RANSAC (essential_matrix_five_point.cc):
     non-minimal 8-point samples with a larger hypothesis budget — the
-    MXU-matched tradeoff (SURVEY.md §7).
+    batched tradeoff (SURVEY.md §7).
     Returns dict: E, inlier_mask, n_inliers, ok.
     """
     N = norm1.shape[0]

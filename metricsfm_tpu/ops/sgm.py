@@ -1,16 +1,15 @@
-"""Semi-global matching dense stereo, XLA-native.
+"""Semi-global matching dense stereo, in plain JAX.
 
 Replaces the CUDA libSGM backend (SfM/src/dense/cudasgm/: 9x7 census ->
 8-path aggregation (P1=10, P2=120) -> winner-takes-all with uniqueness
-0.96 -> 3x3 median -> L/R consistency) and the CPU ELAS capability with
-one TPU formulation (SURVEY.md §7):
+0.96 -> 3x3 median -> L/R consistency) and the CPU ELAS capability
+(SURVEY.md §7):
 
 * census transform: vectorized window comparisons packed into 2 uint32
   lanes; matching cost = Hamming distance via lax.population_count.
-* path aggregation: the classic wavefront recurrence expressed as
-  `lax.scan` over image columns/rows; diagonal paths reuse the horizontal
-  scan on sheared images (shift row y by -y columns => diagonals become
-  columns), the standard way to keep the MXU/VPU busy on a scan dependency.
+* path aggregation: the wavefront recurrence as `lax.scan` over image
+  columns (horizontal paths) and rows (vertical and diagonal paths; a
+  diagonal path shifts its carry by one column per row).
 * WTA + uniqueness + subpixel + median + LR-check: dense elementwise ops.
 """
 from __future__ import annotations
@@ -27,10 +26,8 @@ def census_transform(img, win_h: int = 9, win_w: int = 7):
     Matches dense/cudasgm/src/census_transform.cu semantics: bit = center >
     neighbour, border pixels compare against zero-padded context.
 
-    Layout note: the two words are a LEADING axis — packing them as a
-    trailing dim of 2 puts a 2-wide minor dimension on every downstream
-    elementwise op and wastes 126/128 vector lanes (measured >50x on the
-    cost volume).
+    The two words are a LEADING axis, so no downstream elementwise op
+    carries a 2-wide minor dimension.
     """
     H, W = img.shape
     rh, rw = win_h // 2, win_w // 2
@@ -58,48 +55,33 @@ def matching_cost_volume(census_l, census_r, max_disp: int):
 
     cost(x, y, d) = popcount(census_l(x, y) ^ census_r(x - d, y)); out-of-
     range disparities get the max cost (64). census inputs are (2, H, W).
-    Values are small exact integers; stored as f32 — 16-bit vector ops
-    relayout badly on current TPU toolchains (aggregate_paths re-quantizes
-    per backend).
+    Values are small exact integers, stored as f32.
+
+    Built as an (H, D, W) volume by skew-by-reshape — shifted[y, d, x] =
+    census_r[y, x - d] from one pad and two reshapes — then ONE transpose;
+    on an H100 this measured 12-18x faster than stacking 128 per-disparity
+    rolled slices (CHANGES.md).
     """
     _, H, W = census_l.shape
     D = max_disp
+    WP = W + D
 
-    if jax.default_backend() == "tpu":
-        # Bulk skew-by-reshape: shifted[y, d, x] = census_r[y, x-d] built
-        # with pads/reshapes over an (H, D, W) volume, then ONE transpose.
-        # The per-d roll + stack(axis=-1) form forces XLA to materialize
-        # 128 popcount outputs as (H, W, 1) tiles padded 128x on the lane
-        # axis (popcount is a custom-call and cannot fuse into a minor-axis
-        # concatenate) — 20 GB of HLO temps at 512x640x128.
-        WP = W + D
+    def shifted_vol(w):                          # (H, W) -> (H, D, W)
+        B = jnp.broadcast_to(w[:, None, :], (H, D, W))
+        P = jnp.pad(B, ((0, 0), (0, 0), (0, D)))
+        flat = P.reshape(H, D * WP)[:, :D * (WP - 1)]
+        return flat.reshape(H, D, WP - 1)[:, :, :W]
 
-        def shifted_vol(w):                          # (H, W) -> (H, D, W)
-            B = jnp.broadcast_to(w[:, None, :], (H, D, W))
-            P = jnp.pad(B, ((0, 0), (0, 0), (0, D)))
-            flat = P.reshape(H, D * WP)[:, :D * (WP - 1)]
-            return flat.reshape(H, D, WP - 1)[:, :, :W]
-
-        x_lo = jnp.bitwise_xor(shifted_vol(census_r[0]),
-                               census_l[0][:, None, :])
-        x_hi = jnp.bitwise_xor(shifted_vol(census_r[1]),
-                               census_l[1][:, None, :])
-        ham = (jax.lax.population_count(x_lo)
-               + jax.lax.population_count(x_hi)).astype(jnp.float32)
-        col = jax.lax.broadcasted_iota(jnp.int32, (H, D, W), 2)
-        dd = jax.lax.broadcasted_iota(jnp.int32, (H, D, W), 1)
-        vol = jnp.where(col >= dd, ham, 64.0)
-        return jnp.transpose(vol, (0, 2, 1))
-
-    col = jax.lax.broadcasted_iota(jnp.int32, (H, W), 1)
-
-    def per_d(d):
-        shifted = jnp.roll(census_r, d, axis=2)
-        x = jnp.bitwise_xor(census_l, shifted)
-        ham = jnp.sum(jax.lax.population_count(x), axis=0).astype(jnp.float32)
-        return jnp.where(col >= d, ham, 64.0)
-
-    return jnp.stack([per_d(d) for d in range(max_disp)], axis=-1)
+    x_lo = jnp.bitwise_xor(shifted_vol(census_r[0]),
+                           census_l[0][:, None, :])
+    x_hi = jnp.bitwise_xor(shifted_vol(census_r[1]),
+                           census_l[1][:, None, :])
+    ham = (jax.lax.population_count(x_lo)
+           + jax.lax.population_count(x_hi)).astype(jnp.float32)
+    col = jax.lax.broadcasted_iota(jnp.int32, (H, D, W), 2)
+    dd = jax.lax.broadcasted_iota(jnp.int32, (H, D, W), 1)
+    vol = jnp.where(col >= dd, ham, 64.0)
+    return jnp.transpose(vol, (0, 2, 1))
 
 
 _BIG16 = jnp.int16(16000)      # uniform carry value == "path restarts here"
@@ -135,33 +117,14 @@ def aggregate_paths(cost, p1: int = 10, p2: int = 120,
                     num_paths: int = 8):
     """Sum of 4 or 8 directional aggregations (ref path_aggregation.cu).
 
-    cost: (H, W, D) Hamming volume.  Returns (H, W, D): float32 on the TPU
-    (Pallas) branch, int16 on the lax.scan fallback — values are small exact
-    integers in both, only the vector-friendly storage dtype differs.
+    cost: (H, W, D) Hamming volume.  Returns the (H, W, D) int16 sum.
     p1/p2 are integer penalties (ref libsgm uses ints); float inputs are
     truncated via int().
 
-    Dispatch follows jax.default_backend() — the *process* default, not the
-    placement of `cost`; under jax.default_device(cpu) on a TPU host the
-    Pallas branch is still chosen.
-
-    On TPU this runs as two fused Pallas kernels in the natural layout
-    (pallas/sgm_kernel.py) — the lax.scan path below pays a fixed dispatch
-    cost per sequential step and is kept for CPU/other backends.  Both
-    implement identical math: horizontal scans over columns; vertical AND
-    diagonal paths as scans over rows, the diagonals via a +-1 column shift
-    of the carry per row (no shears/transposes).
+    Horizontal paths scan over columns; vertical AND diagonal paths scan
+    over rows, the diagonals via a +-1 column shift of the carry per row
+    (no shears/transposes).
     """
-    if jax.default_backend() == "tpu":
-        from .pallas.sgm_kernel import aggregate_paths_pallas
-        # f32 storage: values are small exact integers either way, but this
-        # Mosaic's 16-bit vector loads/stores relayout (measured 19 ms i16
-        # vs 8 ms f32 for the same kernels at 512x640x128).  The barrier
-        # stops XLA from rematerializing the cost-volume stack into the
-        # custom-call operand as (H, W, 1)-tiled copies (128x padded, OOM).
-        cost = jax.lax.optimization_barrier(cost.astype(jnp.float32))
-        return aggregate_paths_pallas(cost, int(p1), int(p2), num_paths,
-                                      storage=jnp.float32)
     cost = cost.astype(jnp.int16)
 
     p1i, p2i = int(p1), int(p2)
@@ -197,33 +160,6 @@ def aggregate_paths(cost, p1: int = 10, p2: int = 120,
     return total + vf + vb[::-1]
 
 
-def _disp_from_wta(w, max_disp: int, uniqueness: float, subpixel: bool):
-    """Per-pixel tail of WTA from the fused kernel's reduction outputs
-    (c0/best/c1/cm/cc/cp) — identical math to winner_takes_all below, but
-    operating on (H, W) maps instead of the (H, W, D) volume."""
-    c0 = w["c0"].astype(jnp.float32)
-    c1 = w["c1"].astype(jnp.float32)
-    best = w["best"]
-    valid = c0 <= uniqueness * c1
-    if subpixel:
-        bm = jnp.clip(best, 1, max_disp - 2)
-        cm = w["cm"].astype(jnp.float32)
-        cc = w["cc"].astype(jnp.float32)
-        cp = w["cp"].astype(jnp.float32)
-        denom = cm - 2 * cc + cp
-        # parabola only valid when curvature is positive (a clipped best at
-        # 0 / D-1 can make denom <= 0; dividing by a floored denom flipped
-        # the offset sign there) — suppress the offset instead
-        pos = denom > 1e-6
-        off = jnp.where(pos, 0.5 * (cm - cp) / jnp.where(pos, denom, 1.0),
-                        0.0)
-        disp = bm.astype(jnp.float32) + jnp.clip(off, -1.0, 1.0)
-        disp = jnp.where(best == 0, 0.0, disp)
-    else:
-        disp = best.astype(jnp.float32)
-    return disp, valid
-
-
 def winner_takes_all(agg, uniqueness: float = 0.96, subpixel: bool = True):
     """argmin + uniqueness test + parabolic subpixel (ref winner_takes_all.cu).
 
@@ -241,8 +177,7 @@ def winner_takes_all(agg, uniqueness: float = 0.96, subpixel: bool = True):
     valid = c0 <= uniqueness * c1
     if subpixel:
         bm = jnp.clip(best, 1, D - 2)
-        # neighbour costs via masked reductions — take_along_axis gathers
-        # on the (H, W, D) volume are far slower than dense passes on TPU
+        # neighbour costs via masked reductions over the disparity axis
         sel = d_idx - bm[..., None]
         zero = jnp.zeros((), agg.dtype)
         cm = jnp.sum(jnp.where(sel == -1, agg, zero), axis=-1).astype(jnp.float32)
@@ -281,53 +216,6 @@ def lr_consistency(disp_l, disp_r, max_diff: float = 1.0):
     return jnp.abs(disp_l - dr) <= max_diff
 
 
-def speed_of_light_mps(max_disp: int = 128, element_rate: float = 22e9,
-                       packed: bool = True) -> float:
-    """DMA speed-of-light for the fused TPU SGM path, in megapixels/s.
-
-    Pallas block DMA on this platform is ELEMENT-rate-limited (~22 G
-    elements/s for int8/int16/int32 alike — measured round 3 with
-    pure-copy kernels, see pallas/sgm_kernel.py:_kv_for), so the bound is
-    set by the number of element passes over the (H, W, D) volume.  The
-    shipped pipeline's ledger (stereo_sgm TPU path, packed int32 holding
-    two 16-bit costs per element => D/2 packed elements per pixel):
-
-      census+cost  write 1
-      horiz fwd    read cost 1, write hf 1
-      horiz bwd    read cost 1, write hb 1
-      vert fwd     read cost+hf+hb 3, write partial 1
-      vert bwd     read cost+partial 2, write WTA maps (~16/D of a pass x3)
-
-    = 11 packed-volume passes + WTA output.  Everything downstream
-    (median3 / LR check / subpixel) runs as XLA elementwise passes on
-    (H, W) maps — O(1/D) of the volume traffic.  bench.py reports shipped
-    throughput as a fraction of this bound (round-3 VERDICT next-#6).
-
-    MEASURED STAGE ACCOUNTING (round 5, 512x640x128, chained in-jit;
-    _scratch/sgm_r5_stages.py) — the gap to this DMA-only bound is VPU
-    compute, itemized:
-
-      census+cost   3.4 ms   vs 0.95 ms DMA share (the 62-neighbour
-                             census + log2(D) barrel shifter per row are
-                             compute-bound; removing the per-row slab
-                             transpose and right-subpixel saved ~0.5 ms)
-      horizontal    3.6 ms   vs 3.81 — AT the bound
-      vert fwd      0.9 ms   vs 3.81 — the fused 3-read/1-write pass
-                             overlaps DMA better than the flat
-                             element-rate model assumes
-      vert bwd+WTA  4.8 ms   vs 2.85 — the two fused WTA reductions +
-                             in-VMEM right-image skew are ~2 ms compute
-      XLA maps      2.0 ms   (median3/LR/subpixel on (H, W) maps)
-      TOTAL        14.7 ms = 22.3 MP/s shipped; DMA-only bound 10.6 ms =
-                             30.2 MP/s => shipped is 74% of the DMA
-                             bound and ~97% of the compute-adjusted sum
-                             of its stages.
-    """
-    units = 11.0 + 3.0 * (16.0 / max_disp)
-    elems_per_px = units * max_disp / (2.0 if packed else 1.0)
-    return element_rate / elems_per_px / 1e6
-
-
 @partial(jax.jit, static_argnames=("max_disp", "num_paths", "subpixel",
                                    "p1", "p2"))
 def stereo_sgm(left, right, max_disp: int = 128, p1: int = 10,
@@ -347,46 +235,25 @@ def stereo_sgm(left, right, max_disp: int = 128, p1: int = 10,
     D = max_disp
     H, W = left.shape
 
-    if jax.default_backend() == "tpu":
-        from .pallas.sgm_kernel import (aggregate_wta_pallas,
-                                        census_cost_pallas)
-        # fully fused TPU path: census+cost volume in one kernel (single
-        # volume write), then 3 kernels do aggregation + BOTH WTA passes
-        # (left directly, right via an in-VMEM diagonal skew); the summed
-        # volume is never written back to HBM (pallas/sgm_kernel.py).
-        # packed=True: volumes live as row-pair-packed int32 (two 16-bit
-        # costs per element) — Pallas block DMA here is ELEMENT-rate-
-        # limited (~22 Gel/s for every dtype), so packing halves every
-        # volume pass.  (int16 storage was 2.2x SLOWER: the (16, 128)-tile
-        # relayout + casts at every load/store swamp the DMA win.)
-        cost_p = census_cost_pallas(left, right, max_disp, packed=True)
-        wta_l, wta_r = aggregate_wta_pallas(cost_p, p1, p2, num_paths,
-                                            packed=True,
-                                            real_shape=(H, W, D))
-        disp_l, uniq_l = _disp_from_wta(wta_l, D, uniqueness, subpixel)
-        # right disparity is integer-only (libsgm semantics: it feeds the
-        # <=1 px LR consistency check, where subpixel changes nothing)
-        disp_r, _ = _disp_from_wta(wta_r, D, uniqueness, False)
-    else:
-        cl = census_transform(left)
-        cr = census_transform(right)
-        cost_l = matching_cost_volume(cl, cr, max_disp)
-        agg_l = aggregate_paths(cost_l, p1, p2, num_paths)
-        disp_l, uniq_l = winner_takes_all(agg_l, uniqueness, subpixel)
+    cl = census_transform(left)
+    cr = census_transform(right)
+    cost_l = matching_cost_volume(cl, cr, max_disp)
+    agg_l = aggregate_paths(cost_l, p1, p2, num_paths)
+    disp_l, uniq_l = winner_takes_all(agg_l, uniqueness, subpixel)
 
-        # right disparity from the same volume: cost_r(x, d) = agg_l(x+d, d)
-        big_r = jnp.asarray(30000, agg_l.dtype)
-        # skew-by-reshape: pad the W axis by D then the flat (D*(W+D)) axis
-        # by D and re-split at width W+D+1 — shifts row d by exactly d
-        # columns (diagonal-extraction trick) in one bulk pad/reshape
-        aggT = jnp.transpose(agg_l, (0, 2, 1))                # (H, D, W)
-        WD = W + D
-        P = jnp.pad(aggT, ((0, 0), (0, 0), (0, D)), constant_values=big_r)
-        flat = jnp.pad(P.reshape(H, D * WD), ((0, 0), (0, D)),
-                       constant_values=big_r)
-        cost_r = jnp.transpose(flat.reshape(H, D, WD + 1)[:, :, :W],
-                               (0, 2, 1))                     # (H, W, D)
-        disp_r, _ = winner_takes_all(cost_r, uniqueness, subpixel)
+    # right disparity from the same volume: cost_r(x, d) = agg_l(x+d, d)
+    big_r = jnp.asarray(30000, agg_l.dtype)
+    # skew-by-reshape: pad the W axis by D then the flat (D*(W+D)) axis
+    # by D and re-split at width W+D+1 — shifts row d by exactly d
+    # columns (diagonal-extraction trick) in one bulk pad/reshape
+    aggT = jnp.transpose(agg_l, (0, 2, 1))                # (H, D, W)
+    WD = W + D
+    P = jnp.pad(aggT, ((0, 0), (0, 0), (0, D)), constant_values=big_r)
+    flat = jnp.pad(P.reshape(H, D * WD), ((0, 0), (0, D)),
+                   constant_values=big_r)
+    cost_r = jnp.transpose(flat.reshape(H, D, WD + 1)[:, :, :W],
+                           (0, 2, 1))                     # (H, W, D)
+    disp_r, _ = winner_takes_all(cost_r, uniqueness, subpixel)
 
     disp_l = median3(disp_l)
     disp_r = median3(disp_r)

@@ -1,6 +1,6 @@
-"""SIFT feature detection + description, dense-masked for TPU.
+"""SIFT feature detection + description, dense-masked for batched devices.
 
-TPU-native re-design of the reference extractors
+Re-design of the reference extractors
 (SfM/src/feature/feature_extractor_vl_sift.cpp — vlfeat CPU SIFT, 4 octaves
 x 5 levels, edge_thresh 10, peak_thresh 0;
  feature_extractor_cuda_sift.cpp — CudaSift GPU, 60k keypoint cap).
@@ -21,8 +21,8 @@ loops) become dense masked computation (SURVEY.md §7 "hard parts" #3):
   keypoint's own gaussian level (per-level gradient stacks); all P^2
   pixels contribute with trilinear soft-binning — vlfeat's every-pixel
   accumulation, not a 16x16 subsample — and the 4x4x8 histogram is a
-  batched (4, P^2) @ (P^2, 8) matmul per spatial row (MXU), replacing the
-  per-keypoint bilinear-gather path that measured 150 ms/image.
+  batched (4, P^2) @ (P^2, 8) matmul per spatial row, replacing a
+  per-keypoint bilinear-gather path.
 * Multiple orientations per keypoint (vlfeat 80%-peak rule): up to 2
   slots per detection, the second masked unless its histogram peak is
   >= 0.8x the primary.
@@ -200,7 +200,7 @@ def detect_octave(stack, octave, cfg: SiftConfig, budget):
     valid = is_ext & edge_ok & inb & (resp > cfg.peak_thresh)
     score = jnp.where(valid, resp, -1.0)
     flat = score.reshape(-1)
-    # budgeted selection: approx_max_k is the TPU-native partial reduction
+    # budgeted selection: approx_max_k is a partial reduction
     # (top_k lowers to a full sort of the L*H*W volume)
     top, idx = jax.lax.approx_max_k(flat, budget, recall_target=0.95)
     lvl = idx // (H * W)

@@ -1,6 +1,6 @@
 """Weighted rigid / similarity alignment (Umeyama).
 
-TPU-native re-design of the reference's transformation utilities
+Re-design of the reference's transformation utilities
 (SfM/src/utils/transformation.cpp:49-216): weighted Umeyama for
 RigidTransformation (R, t) and SimilarityTransformation (s, R, t), the core
 of GPS georeferencing (slam_gps.cc:1596-1674) and of the 3-point absolute

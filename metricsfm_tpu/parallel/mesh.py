@@ -10,7 +10,10 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
 def make_mesh(n_data: Optional[int] = None, axis_name: str = "data") -> Mesh:
-    """1-D data mesh over the first n_data devices (default: all)."""
+    """1-D data mesh over the first n_data devices (default: all).
+
+    One axis is enough: the cards of a host are joined all to all (NVLink),
+    so the mesh follows the algorithm's data axis, not a topology."""
     devs = jax.devices()
     n = n_data or len(devs)
     return Mesh(np.array(devs[:n]), (axis_name,))
@@ -22,14 +25,15 @@ def make_mesh(n_data: Optional[int] = None, axis_name: str = "data") -> Mesh:
 def initialize_distributed(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None) -> int:
-    """Bring up the jax.distributed runtime for a multi-host slice.
+    """Bring up the jax.distributed runtime for a multi-process run.
 
     Safe to call in every entry path: a single-process run (no coordinator
     configured via args or JAX_COORDINATOR_ADDRESS / standard cluster env)
     is a no-op.  Returns the process index (0 when single-process).
-    Collectives then run over ICI within a slice and DCN across slices —
-    the jit-compiled psum/all_gather in parallel/* are unchanged; only the
-    mesh grows to jax.devices() spanning all processes.
+    The jit-compiled psum/all_gather in parallel/* are unchanged; only the
+    mesh grows to jax.devices() spanning all processes.  Without a cluster
+    environment, pass coordinator_address (e.g. "localhost:<port>"),
+    num_processes and process_id explicitly.
     """
     import os
     if jax.process_count() > 1:

@@ -86,10 +86,7 @@ def make_sharded_lm(mesh: Mesh, cfg: LMConfig = LMConfig(),
     be sharded over `axis_name` (see parallel.mesh.shard_tracks).
 
     Like ba.lm.solve_lm, each XLA execution runs at most cfg.host_chunk LM
-    iterations and the host carries (lam, eta, cost) across chunks — the
-    TPU transport's per-call deadline killed a worker on one unchunked
-    100-iteration 1k-camera solve (lm.py:66-70), and the multi-chip path
-    is exactly the scale where that bites (ADVICE r4, medium).
+    iterations and the host carries (lam, eta, cost) across chunks.
     """
     step = _make_step(cfg, axis_name)
 

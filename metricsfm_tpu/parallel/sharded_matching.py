@@ -2,7 +2,7 @@
 
 The reference parallelizes candidate-pair matching with OpenMP threads
 (fine_matching_graph.cc:87); here batches of image pairs shard over the
-mesh `data` axis — each chip matches its pairs with the MXU brute-force
+mesh `data` axis — each device matches its pairs with the brute-force
 kernel, no communication.
 """
 from __future__ import annotations
@@ -26,14 +26,9 @@ def make_sharded_matcher(mesh: Mesh, ratio_good: float = 0.6,
 
     spec = P(axis_name)
     out_spec = {"idx2": spec, "good": spec, "all": spec, "dist_sq": spec}
-    # check_vma=False: match_pair may route to a pallas_call, whose
-    # ShapeDtypeStruct outputs carry no varying-mesh-axes annotation —
-    # under the default check the shard_map trace rejects them.  The
-    # matcher is embarrassingly data-parallel (no collectives), so the
-    # varying-axis analysis has nothing to verify here anyway.
     fn = jax.shard_map(match_shard, mesh=mesh,
                        in_specs=(spec, spec, spec, spec),
-                       out_specs=out_spec, check_vma=False)
+                       out_specs=out_spec)
     return jax.jit(fn)
 
 

@@ -216,10 +216,8 @@ def _solve_group(problems, cfg: LMConfig):
     """HOST-CHUNKED solve of one fixed-size vmapped submap group.
 
     Host-chunked like solve_lm: each XLA execution runs at most
-    cfg.host_chunk LM iterations per submap (one unchunked 18-submap x
-    100-iteration execution at the 1k-image scale is minutes of device
-    time — the transport-deadline class the chunking exists for,
-    lm.py:66-70).  Small groups (total observations under
+    cfg.host_chunk LM iterations per submap (lm.py LMConfig.host_chunk).
+    Small groups (total observations under
     cfg.host_chunk_small_obs) run the full budget in one execution.
     Already-converged submaps re-entering a later chunk reject one step
     and idle in the while_loop, so the waste per extra chunk is one LM
@@ -266,9 +264,8 @@ def solve_submaps(problems, cfg: LMConfig = LMConfig(),
       full BA (S = 8, 9, 10, ...) and each distinct S recompiles the
       vmapped solver (~40 s per shape);
     * bounded HLO temps — the dense per-submap Schur path materializes
-      (S, P, V, 9, 3)-class intermediates whose tiny minor dims tile-pad
-      ~19x; at S = 16 x P = 16k that alone exceeded HBM (round-5
-      measured OOM at the 500-image scale).
+      (S, P, V, 9, 3)-class intermediates with tiny minor dims, which ran
+      out of device memory at the 500-image scale.
 
     With a mesh, each group's batch axis is sharded over it — submaps are
     independent, so XLA needs no collectives (the pose graph on host does
@@ -423,9 +420,9 @@ def hierarchical_ba(scene, kp_xy: Dict[int, np.ndarray],
     if cfg.cg_iterations == 0:
         # batched submap solves always use the matrix-free PCG camera
         # solve: the dense per-submap Schur path materializes O(P*C)
-        # one-hot factors and (P, V, 9, 3) temps whose tiny minor dims
-        # tile-pad 19-42x under vmap — HBM OOM at the 500-image scale
-        # (round-5 measured); the lane-major CG terms stay O(P*V) unpadded
+        # one-hot factors and (P, V, 9, 3) temps with tiny minor dims
+        # under vmap — out of memory at the 500-image scale; the
+        # lane-major CG terms stay O(P*V)
         cfg = cfg._replace(cg_iterations=50)
     solved, info = solve_submaps(probs, cfg, mesh=mesh)
     poses_out = np.asarray(solved.poses, np.float64)    # (S, Cp, 6)

@@ -4,7 +4,7 @@ Re-design of SfM/src/utils/calibration.{h,cc}: invert the radial model
 r_d = r_u (1 + k1 r_u^2 + k2 r_u^4) exactly by solving the quintic in r_u
 with the Durand-Kerner finder (ops/polynomial.py) — the reference's
 companion-matrix approach (calibration.cc:17-19) is a non-symmetric eigen
-solve unavailable on TPU.  ops/projection.undistort_radial is the fast
+solve JAX lacks on accelerators.  ops/projection.undistort_radial is the fast
 fixed-point alternative used in the hot path.
 """
 from __future__ import annotations

@@ -2,11 +2,12 @@
 
 Replaces the reference's easyexif wrapper (SfM/src/utils/exif_reader.{h,cpp},
 used database.cc:249-281: focal mm -> pixels via FocalPlaneXResolution or
-sensor width, GPS lat/lon/alt).  Uses PIL's EXIF support.
+sensor width, GPS lat/lon/alt).  Camera files (JPEG, TIFF) are read with
+Pillow's EXIF support; PNG files carry no camera EXIF and need no Pillow.
 """
 from __future__ import annotations
 
-from typing import Optional
+from ..io import png
 
 
 def _ratio(v) -> float:
@@ -39,12 +40,15 @@ def extract_image_info(path: str) -> dict:
     """
     out = {"focal_px": 0.0, "focal_mm": 0.0, "gps": (0.0, 0.0, 0.0),
            "maker": "", "model": "", "width": 0, "height": 0}
-    try:
-        from PIL import Image
-        from PIL.ExifTags import TAGS, GPSTAGS
-        im = Image.open(path)
+    if png.is_png(path):
+        out["width"], out["height"] = png.image_size(path)
+        return out
+    with png.open_pillow(path) as im:
         out["width"], out["height"] = im.size
         raw = im.getexif()
+    from PIL.ExifTags import GPSTAGS, TAGS
+    # malformed or partial EXIF blocks leave the defaults in place
+    try:
         if raw is None:
             return out
         exif = {TAGS.get(k, k): v for k, v in raw.items()}

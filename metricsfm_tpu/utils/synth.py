@@ -2,7 +2,7 @@
 
 The reference validates its pipeline only on real photo sets
 (SfM/test/test_sfm/test_sfm.cc:22-73 — the documented usage); it ships no
-fixtures.  For the TPU build we need a deterministic, license-free way to
+fixtures.  This build needs a deterministic, license-free way to
 exercise the FULL images -> SIFT -> matching -> reconstruction loop with a
 known answer, so this module renders a piecewise-planar textured scene from
 N pinhole cameras by exact homography inverse-warping (each textured plane
@@ -179,9 +179,8 @@ def render_aerial(seed: int = 0, rows: int = 10, cols: int = 20,
     per-pixel texture is PROCEDURAL — a per-tile sum of `n_waves` random
     plane waves with log-spaced frequencies (multi-octave blob/corner
     structure for DoG, locally distinctive phases for the ratio test) — so
-    the device kernel is pure elementwise math, no gathers.  The previous
-    host-numpy painter loop rendered ~1 image/s on this box; a 1,000-image
-    fixture (BASELINE config 4) was out of reach.
+    the device kernel is pure elementwise math, no gathers, and a
+    1,000-image fixture (BASELINE config 4) is within reach.
 
     Returns the same dict schema as render_scene; `centers[:, :2]` doubles
     as the UTM easting/northing for GPS-priori candidate selection
@@ -336,30 +335,6 @@ def render_aerial(seed: int = 0, rows: int = 10, cols: int = 20,
             "focal": float(focal)}
 
 
-def aerial_fixture(rows: int, cols: int, width: int = 640, height: int = 480,
-                   seed: int = 0, cache_dir: str | None = None):
-    """render_aerial with an on-disk cache (the bench fixture entry point).
-
-    The pipeline never sees the cache: callers re-encode the images to PNG
-    per run like any input set."""
-    import os
-    if cache_dir is None:
-        cache_dir = os.path.join(os.path.expanduser("~"), ".cache",
-                                 "metricsfm_tpu")
-    path = os.path.join(
-        cache_dir, f"aerialv2_{rows}x{cols}_{width}x{height}_s{seed}.npz")
-    if os.path.exists(path):
-        d = np.load(path)
-        scene = {k: d[k] for k in d.files}
-        scene["focal"] = float(scene["focal"])
-        return scene
-    scene = render_aerial(seed=seed, rows=rows, cols=cols, width=width,
-                          height=height)
-    os.makedirs(cache_dir, exist_ok=True)
-    np.savez_compressed(path, **scene)
-    return scene
-
-
 def synthetic_ba_problem(n_cams: int = 1024, n_pts: int = 131072,
                          max_views: int = 6, seed: int = 0,
                          noise_pose: float = 0.01, noise_pt: float = 0.05,
@@ -422,13 +397,13 @@ def write_scene_images(fold: str, scene: dict) -> List[str]:
     discovery stage expects)."""
     import os
 
-    from PIL import Image
+    from ..io.png import write_png
 
     os.makedirs(fold, exist_ok=True)
     paths = []
     for i, img in enumerate(scene["images"]):
         p = f"{fold}/view_{i:03d}.png"
-        Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(p)
+        write_png(p, (np.clip(img, 0, 1) * 255).astype(np.uint8))
         paths.append(p)
     return paths
 

@@ -3,7 +3,7 @@
 The reference has no tracing (SURVEY.md §5: std::cout lines + one chrono
 timer).  This module adds the missing engineering: scoped wall-clock
 timers with aggregated reports, and hooks into the JAX device profiler for
-per-kernel TPU traces.
+per-kernel device traces.
 """
 from __future__ import annotations
 

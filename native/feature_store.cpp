@@ -1,6 +1,6 @@
 // Native feature-store runtime: binary per-image records + threaded loader.
 //
-// TPU-native counterpart of the reference's binary feature/match file IO
+// Counterpart of the reference's binary feature/match file IO
 // (SfM/src/database.cc:490-541 WriteoutImageFeature / :352-423
 // ReadinImageFeatures) and its OpenMP-parallel readers: fixed-layout
 // records written/read with raw I/O and a std::thread pool batch loader,

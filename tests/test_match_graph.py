@@ -2,7 +2,7 @@
 sharded (8-device CPU mesh) execution, candidate strategies.
 
 The reference's fine matching graph (SfM/src/graph/fine_matching_graph.cc)
-had no tests of its own; these pin our batched TPU driver's semantics:
+had no tests of its own; these pin our batched driver's semantics:
 dual ratio tests -> F-RANSAC on "good" -> epipolar refilter of "all"
 (fine_matching_graph.cc:42-43,104-147).
 """

@@ -1,6 +1,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from metricsfm_tpu.ops import matching, sift
 
@@ -99,52 +100,105 @@ def test_sift_translation_matching(rng):
     assert np.median(err) < 2.0
 
 
-def test_knn2_pallas_matches_xla(rng):
-    """Fused Pallas 2-NN kernel (interpret mode on CPU) agrees with the
-    XLA matmul matcher — best/second distances and argmax indices."""
-    import jax.numpy as jnp
-    from metricsfm_tpu.ops import matching
-    from metricsfm_tpu.ops.pallas.match_kernel import knn2_pallas
-
-    d1 = rng.normal(size=(300, 128)).astype(np.float32)
-    d1 /= np.linalg.norm(d1, axis=-1, keepdims=True)
-    d2 = rng.normal(size=(500, 128)).astype(np.float32)
-    d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)
-    mask2 = np.ones(500, bool)
-    mask2[450:] = False
-
-    p1, p2, pidx = knn2_pallas(jnp.asarray(d1), jnp.asarray(d2),
-                               jnp.asarray(mask2), tile=128,
-                               interpret=True)
-    x1, x2, xidx = matching.knn2(jnp.asarray(d1), jnp.asarray(d2),
-                                 jnp.asarray(mask2))
-    assert float((np.asarray(pidx) == np.asarray(xidx)).mean()) > 0.999
-    assert int(np.asarray(pidx).max()) < 450  # mask respected
-    np.testing.assert_allclose(np.asarray(p1), np.asarray(x1), atol=2e-2)
-    np.testing.assert_allclose(np.asarray(p2), np.asarray(x2), atol=2e-2)
+def _knn_inputs(rng, n1, n2, n_masked):
+    """SIFT-like (non-negative, unit) rows; every query is a noisy copy of a
+    database row, so its nearest valid neighbour is unambiguous unless the
+    planted row is masked out."""
+    d2 = np.abs(rng.normal(size=(n2, 128))).astype(np.float32)
+    d2 /= np.linalg.norm(d2, axis=1, keepdims=True)
+    mask2 = np.ones(n2, bool)
+    mask2[n2 - n_masked:] = False
+    planted = rng.integers(0, n2, size=n1)
+    d1 = d2[planted] + 0.1 * np.abs(rng.normal(size=(n1, 128)))
+    d1 = (d1 / np.linalg.norm(d1, axis=1, keepdims=True)).astype(np.float32)
+    return d1, d2, mask2, planted
 
 
-def test_knn2_pallas_batched_vmap(rng):
-    """vmap over the Pallas kernel (the production batching path) agrees
-    with per-pair XLA results."""
-    import jax
-    import jax.numpy as jnp
-    from metricsfm_tpu.ops import matching
-    from metricsfm_tpu.ops.pallas.match_kernel import _knn2_pallas_impl
+def _check_knn2(got, d1, d2, mask2, planted):
+    """Compare a 2-NN result with an f32 numpy brute force."""
+    sim = d1 @ d2.T
+    sim[:, ~mask2] = -np.inf
+    order = np.argsort(-sim, axis=1, kind="stable")
+    rows = np.arange(len(d1))
+    want1 = 2.0 - 2.0 * sim[rows, order[:, 0]]
+    want2 = 2.0 - 2.0 * sim[rows, order[:, 1]]
+    g1, g2, gi = (np.asarray(x) for x in got)
+    assert gi.shape == (len(d1),) and gi.dtype == np.int32
+    assert mask2[gi].all(), "a masked database row was returned"
+    clear = mask2[planted]
+    np.testing.assert_array_equal(gi[clear], planted[clear])
+    # bf16 operands with f32 accumulation: similarities carry ~2^-9
+    # relative error, i.e. up to ~1e-2 on d^2 = 2 - 2 s
+    np.testing.assert_allclose(g1, want1, atol=2e-2)
+    np.testing.assert_allclose(g2, want2, atol=2e-2)
 
-    B, N = 3, 256
-    d1 = rng.normal(size=(B, N, 128)).astype(np.float32)
-    d1 /= np.linalg.norm(d1, axis=-1, keepdims=True)
-    d2 = rng.normal(size=(B, N, 128)).astype(np.float32)
-    d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)
-    fn = jax.vmap(lambda a, b: _knn2_pallas_impl(a, b, tile=128,
-                                                 interpret=True))
-    p1, p2, pidx = fn(jnp.asarray(d1), jnp.asarray(d2))
-    for b in range(B):
-        x1, x2, xidx = matching.knn2(jnp.asarray(d1[b]), jnp.asarray(d2[b]))
-        # quantized packing (2^-17) may flip argmax on near-exact ties
-        assert float((np.asarray(pidx[b]) == np.asarray(xidx)).mean()) > 0.99
-        np.testing.assert_allclose(np.asarray(p1[b]), np.asarray(x1), atol=2e-2)
+
+# (N1, N2, chunk, masked database rows)
+_KNN_CASES = {
+    "n2_not_multiple_of_chunk": (100, 333, 128, 0),
+    "masked_rows": (64, 300, 128, 40),
+    "n1_ne_n2": (257, 64, 32, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_KNN_CASES))
+def test_knn2_matches_bruteforce(rng, case):
+    n1, n2, chunk, n_masked = _KNN_CASES[case]
+    d1, d2, mask2, planted = _knn_inputs(rng, n1, n2, n_masked)
+    got = matching.knn2(jnp.asarray(d1), jnp.asarray(d2), jnp.asarray(mask2),
+                        chunk=chunk)
+    _check_knn2(got, d1, d2, mask2, planted)
+
+
+@pytest.mark.parametrize("case", sorted(_KNN_CASES))
+def test_knn2_triton_interpret_matches_bruteforce(rng, case):
+    """The fused GPU kernel's body, run by the Pallas interpreter."""
+    from metricsfm_tpu.ops.pallas.match_kernel import knn2_triton
+    n1, n2, _, n_masked = _KNN_CASES[case]
+    d1, d2, mask2, planted = _knn_inputs(rng, n1, n2, n_masked)
+    got = knn2_triton(jnp.asarray(d1), jnp.asarray(d2), jnp.asarray(mask2),
+                      interpret=True)
+    _check_knn2(got, d1, d2, mask2, planted)
+
+
+def test_knn2_triton_interpret_vmapped(rng):
+    """vmap over pairs (the match-graph batching) prepends a grid axis."""
+    from metricsfm_tpu.ops.pallas.match_kernel import knn2_triton
+    batch = [_knn_inputs(rng, 96, 200, 24) for _ in range(3)]
+    d1, d2, mask2 = (jnp.asarray(np.stack([b[k] for b in batch]))
+                     for k in range(3))
+    got = jax.vmap(lambda a, b, m: knn2_triton(a, b, m, interpret=True))(
+        d1, d2, mask2)
+    for k, (a, b, m, planted) in enumerate(batch):
+        _check_knn2([x[k] for x in got], a, b, m, planted)
+
+
+def test_match_pair_dispatch_off_gpu(rng):
+    """Off the GPU, match_pair runs the XLA scan and no Pallas kernel."""
+    d1, d2, _, _ = _knn_inputs(rng, 64, 128, 0)
+    jaxpr = str(jax.make_jaxpr(matching.match_pair)(jnp.asarray(d1),
+                                                     jnp.asarray(d2)))
+    assert "pallas_call" not in jaxpr and "scan" in jaxpr
+
+
+@pytest.mark.gpu
+def test_knn2_triton_on_gpu(gpu, rng):
+    """The compiled kernel (no interpreter) against the brute force, alone
+    and vmapped, and match_pair dispatching to it."""
+    from metricsfm_tpu.ops.pallas.match_kernel import knn2_triton
+    for n1, n2, _, n_masked in _KNN_CASES.values():
+        d1, d2, mask2, planted = _knn_inputs(rng, n1, n2, n_masked)
+        got = jax.jit(knn2_triton)(jnp.asarray(d1), jnp.asarray(d2),
+                                   jnp.asarray(mask2))
+        _check_knn2(got, d1, d2, mask2, planted)
+    batch = [_knn_inputs(rng, 1000, 3000, 100) for _ in range(4)]
+    d1, d2, mask2 = (jnp.asarray(np.stack([b[k] for b in batch]))
+                     for k in range(3))
+    got = jax.jit(jax.vmap(knn2_triton))(d1, d2, mask2)
+    for k, (a, b, m, planted) in enumerate(batch):
+        _check_knn2([x[k] for x in got], a, b, m, planted)
+    jaxpr = str(jax.make_jaxpr(matching.match_pair)(d1[0], d2[0]))
+    assert "pallas_call" in jaxpr
 
 
 def _blob_image(centers, H=128, W=128, s=2.5):

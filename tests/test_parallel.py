@@ -50,14 +50,13 @@ def test_sharded_ba_convergence(rng):
     assert rms < 0.1
 
 
-def test_sharded_matching(rng):
+def _check_sharded_matching(rng, mesh):
     B, N, D = 8, 128, 128
     d = rng.normal(size=(B, N, D)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     noise = d + 0.02 * rng.normal(size=d.shape).astype(np.float32)
     noise /= np.linalg.norm(noise, axis=-1, keepdims=True)
     mask = np.ones((B, N), bool)
-    mesh = make_mesh(8)
     res = match_pairs_sharded(d, noise, mask, mask, mesh)
     idx2 = np.asarray(res["idx2"])
     good = np.asarray(res["good"])
@@ -66,6 +65,17 @@ def test_sharded_matching(rng):
         g = good[b]
         assert g.sum() > N * 0.7
         assert (idx2[b][g] == np.arange(N)[g]).mean() > 0.99
+
+
+def test_sharded_matching(rng):
+    _check_sharded_matching(rng, make_mesh(8))
+
+
+@pytest.mark.gpu
+def test_sharded_matching_gpu_kernel(gpu, rng):
+    """shard_map's varying-axes check over the Triton 2-NN, traced as on
+    four cards (a one-card mesh here)."""
+    _check_sharded_matching(rng, make_mesh(1))
 
 
 # -- multi-host scaffolding (single-process degenerate coverage) -------------
